@@ -1,0 +1,195 @@
+"""Server-side aggregation (paper Eq. 3-5) for the asynchronous runtime.
+
+* ``cohort_weights``      -- RELIEF's [N, G] combine weights: each group is
+  averaged only over the clients that trained it; the shared fusion B uses
+  normalized modality-count weighting (Eq. 4).
+* ``staleness_discounts`` -- FedBuff's polynomial 1/(1+s)^a.
+* ``CohortAggBuffer``     -- streaming Eq. 3 aggregate + Eq. 5 divergence
+  statistics over a flushed cohort; the row-blocked fusion leaf goes through
+  the fused ``kernels/cohort_agg`` ops (the CUDA kernels on the card).
+
+Only the plain weighted mean is ported; the Byzantine-robust reducers
+(trimmed mean, median, Krum) are not, and asking for one raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import mdlora
+from repro_torch.kernels.cohort_agg import ops as cohort_ops
+from repro_torch.kernels.cohort_agg.ref import staleness_discount_ref
+from repro_torch.tree import leaves, map_with_path, tree_map
+
+
+def cohort_weights(layout: mdlora.GroupLayout, trained: torch.Tensor,
+                   modality_mask: torch.Tensor,
+                   client_scale: torch.Tensor | None = None,
+                   defer_scale: bool = False) -> torch.Tensor:
+    """RELIEF combine weights W: [N, G].
+
+    trained: [N, G] -- which groups each client trained+uploaded.
+    modality_mask: [N, M] -- possession, for Eq. 4's w_n = (|M_n|/M)/sum(...).
+    client_scale: optional [N] per-client weight applied *inside* the
+    normalization (the async runtime's staleness discounts).
+    defer_scale: keep ``client_scale`` in the denominator but not the
+    numerator, for the quantized ingest that re-applies it inside the fused
+    reduction. Empty cohort => all-zero column (the block stays frozen).
+    """
+    trained = trained.float()
+    mcount = modality_mask.float().sum(1)  # [N]
+    is_b = torch.as_tensor(np.array(layout.kinds) == mdlora.KIND_FUSION_B,
+                           device=trained.device)  # [G]
+    u = torch.where(is_b[None, :], (mcount / layout.n_modalities)[:, None],
+                    1.0)  # [N, G]
+    w = num = trained * u
+    if client_scale is not None:
+        w = w * client_scale.float()[:, None]
+        if not defer_scale:
+            num = w
+    denom = w.sum(0, keepdim=True)  # [1, G]
+    return torch.where(denom > 0, num / denom.clamp(min=1e-12), 0.0)
+
+
+def staleness_discounts(staleness: torch.Tensor,
+                        exponent: float) -> torch.Tensor:
+    """FedBuff-style polynomial staleness discount 1/(1+s)^a. s is measured
+    in server model versions (flushes) since the client pulled."""
+    return 1.0 / torch.pow(1.0 + staleness.float(), exponent)
+
+
+@dataclasses.dataclass
+class QuantizedStack:
+    """A client-stacked int8 uplink payload: ``q`` leaves are [K, ...] int8
+    and ``scales`` leaves the matching [K] per-(client, leaf) dequant
+    scales. ``CohortAggBuffer.push_quantized`` ingests it without
+    rebuilding the fp32 stack."""
+    q: Any
+    scales: Any
+
+
+class CohortAggBuffer:
+    """Streaming Eq. 3 aggregate + Eq. 5 divergence sufficient statistics.
+
+        push(deltas [K,...], W [K,G], C [K,G])            fp32 uplink
+        push_quantized(q, scales, W, C, staleness, a)     int8 uplink
+        finalize() -> (agg tree, divergence [G], cohort counts [G])
+
+    The fusion leaf goes through ``kernels/cohort_agg`` (aggregate and
+    per-row sqsum/mean/count in one pass); every other leaf is a whole-leaf
+    group reduced with the same masked einsums as the reference. Empty
+    cohorts finalize to zero aggregate and zero divergence (frozen block).
+    """
+
+    def __init__(self, layout: mdlora.GroupLayout, proto: Any,
+                 robust: str = "mean"):
+        if robust != "mean":
+            raise NotImplementedError(
+                f"robust={robust!r}: only the weighted mean is ported")
+        self.layout = layout
+        self._proto = proto
+        self.reset()
+
+    def reset(self) -> None:
+        """Clear accumulated state so the buffer can serve the next flush."""
+        zeros = lambda x: torch.zeros_like(x, dtype=torch.float32)  # noqa: E731
+        self._agg = tree_map(zeros, self._proto)
+        self._csum = tree_map(zeros, self._proto)
+        dev = leaves(self._proto)[0].device
+        self._sq = torch.zeros(self.layout.G, device=dev)
+        self._cnt = torch.zeros(self.layout.G, device=dev)
+
+    def _commit(self, pairs: Any, sq: torch.Tensor, C: torch.Tensor) -> None:
+        """Add one chunk: ``pairs`` has (aggregate, cohort sum) leaves."""
+        self._agg = tree_map(lambda a, pr: a + pr[0], self._agg, pairs)
+        self._csum = tree_map(lambda c, pr: c + pr[1], self._csum, pairs)
+        self._sq = self._sq + sq
+        self._cnt = self._cnt + C.sum(0)
+
+    def push(self, deltas: Any, W: torch.Tensor, C: torch.Tensor) -> None:
+        """deltas: client-stacked tree ([K, ...] leaves); W/C: [K, G]
+        combine weights and divergence-cohort mask for this chunk."""
+        layout = self.layout
+        W, C = W.float(), C.float()
+        sq = torch.zeros(layout.G, device=W.device)
+
+        def reduce(p, leaf):
+            x = leaf.float()
+            if p == layout.fusion_a_path:
+                rg = layout.row_index(leaf.shape[1], leaf.device)
+                agg, sq_rows, mean_rows, cnt_rows = (
+                    cohort_ops.cohort_agg_divergence(
+                        x.contiguous(), W[:, rg].contiguous(),
+                        C[:, rg].contiguous()))
+                sq.index_add_(0, rg, sq_rows)
+                return agg, mean_rows * cnt_rows[:, None]
+            if p in layout.leaf_group:
+                g = layout.leaf_group[p]
+                per_n = x.square().sum(dim=tuple(range(1, x.dim())))  # [K]
+                sq[g] += (per_n * C[:, g]).sum()
+                return (torch.einsum("n,n...->...", W[:, g], x),
+                        torch.einsum("n,n...->...", C[:, g], x))
+            zero = torch.zeros(leaf.shape[1:], device=leaf.device)
+            return zero, zero
+
+        self._commit(map_with_path(reduce, deltas), sq, C)
+
+    def push_quantized(self, q: Any, scales: Any, W: torch.Tensor,
+                       C: torch.Tensor, staleness: torch.Tensor | None = None,
+                       exponent: float = 0.0) -> None:
+        """One-pass compressed ingest: int8 client chunks, dequantized and
+        staleness-discounted inside the reduction.
+
+        q: client-stacked tree ([K, ...] int8 leaves); scales: matching [K]
+        dequant scales. W must come from ``cohort_weights(...,
+        defer_scale=True)`` when the discount takes part in normalization:
+        the effective weight W * 1/(1+staleness)^exponent is applied here,
+        inside the fused kernel for the fusion leaf and folded into the [K]
+        einsum weights for every other leaf.
+        """
+        layout = self.layout
+        W, C = W.float(), C.float()
+        if staleness is None:
+            staleness = torch.zeros(W.shape[0], device=W.device)
+        staleness = staleness.float()
+        disc = staleness_discount_ref(staleness, exponent)
+        sq = torch.zeros(layout.G, device=W.device)
+
+        def reduce(p, leaf, f):
+            f = f.float()  # [K] dequant scales
+            if p == layout.fusion_a_path:
+                rg = layout.row_index(leaf.shape[1], leaf.device)
+                agg, sq_rows, mean_rows, cnt_rows = (
+                    cohort_ops.cohort_agg_divergence_quant(
+                        leaf.contiguous(), f.contiguous(),
+                        W[:, rg].contiguous(), C[:, rg].contiguous(),
+                        staleness.contiguous(), exponent))
+                sq.index_add_(0, rg, sq_rows)
+                return agg, mean_rows * cnt_rows[:, None]
+            if p in layout.leaf_group:
+                g = layout.leaf_group[p]
+                x = leaf.float()
+                per_n = x.square().sum(dim=tuple(range(1, x.dim())))  # [K]
+                sq[g] += (per_n * C[:, g] * f.square()).sum()
+                return (torch.einsum("n,n...->...", W[:, g] * disc * f, x),
+                        torch.einsum("n,n...->...", C[:, g] * f, x))
+            zero = torch.zeros(leaf.shape[1:], device=leaf.device)
+            return zero, zero
+
+        self._commit(map_with_path(reduce, q, scales), sq, C)
+
+    def finalize(self) -> tuple[Any, torch.Tensor, torch.Tensor]:
+        """-> (aggregate tree, per-group divergence [G], cohort counts [G]).
+
+        Divergence uses the sufficient-statistics identity
+        E||d - mean||^2 = E||d||^2 - ||mean||^2 over each group's cohort.
+        """
+        cnt = self._cnt
+        inv = 1.0 / cnt.clamp(min=1.0)
+        mean_tree = mdlora.group_gate_tree(self.layout, self._csum, inv)
+        msq = mdlora.group_norms(self.layout, mean_tree)
+        d = torch.where(cnt > 0, (self._sq * inv - msq).clamp(min=0.0), 0.0)
+        return self._agg, d, cnt

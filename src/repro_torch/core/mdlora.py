@@ -1,0 +1,200 @@
+"""MDLoRA group layout (paper Eq. 1, Sec. III-B): RELIEF's unified interface
+for aggregation, elastic training and communication.
+
+All trainable parameters are organized into G groups
+
+    G = M fusion blocks + 1 shared B + sum_m L_m encoder groups + L_H head
+
+A ``GroupLayout`` indexes every trainable leaf (or row range of the blocked
+fusion leaf) to a group id and carries per-group metadata. Leaves are walked
+in sorted key order, as JAX flattens dicts, so group ids equal the
+reference's: for PAMAP2 Backbone 1 the encoder groups come out acc, gyro,
+hr, mag -- not modality order -- while the fusion rows stay in modality
+order.
+
+The tree ops take a gate or return norms with optional leading batch axes
+(``[*B, G]``), so K client-stacked trees are gated in one call.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.tree import leaves_with_path, map_with_path, path_str
+
+__all__ = ["GroupLayout", "mm_group_layout", "group_gate_tree",
+           "group_norms", "path_str", "KIND_FUSION_BLOCK", "KIND_FUSION_B",
+           "KIND_ENCODER", "KIND_HEAD"]
+
+KIND_FUSION_BLOCK = "fusion_block"
+KIND_FUSION_B = "fusion_b"
+KIND_ENCODER = "encoder"
+KIND_HEAD = "head"
+
+
+@dataclasses.dataclass
+class GroupLayout:
+    names: list[str]
+    kinds: list[str]
+    modality: np.ndarray  # [G] int, -1 for none
+    sizes: np.ndarray  # [G] param counts
+    flops: np.ndarray  # [G] relative per-round training cost
+    leaf_group: dict[str, int]  # whole-leaf path -> group id
+    # layer-stacked leaf -> per-slice gid (Backbone 2's encoders; empty for
+    # Backbone 1, the only backbone ported so far)
+    leaf_axis0_groups: dict[str, np.ndarray]
+    fusion_a_path: str | None  # the row-blocked leaf
+    fusion_rows: list[tuple[int, int, int]]  # (row_start, row_end, group_id)
+    n_modalities: int
+    # (D, device) -> row_group_vector(D) on that device
+    _row_index: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
+
+    @property
+    def G(self) -> int:
+        return len(self.names)
+
+    def accessible(self, modality_mask: np.ndarray) -> np.ndarray:
+        """modality_mask: [N, M] -> accessible groups G_n: [N, G] bool."""
+        mm = np.asarray(modality_mask, bool)
+        out = np.zeros((mm.shape[0], self.G), bool)
+        for g in range(self.G):
+            if self.sizes[g] == 0:  # empty group (e.g. no B matrix in B1)
+                continue
+            m = self.modality[g]
+            out[:, g] = True if m < 0 else mm[:, m]
+        return out
+
+    def mandatory(self, modality_mask: np.ndarray) -> np.ndarray:
+        """Mandatory inclusion {A_m : m in M_n} (paper IV-B2b): [N, G]."""
+        mm = np.asarray(modality_mask, bool)
+        out = np.zeros((mm.shape[0], self.G), bool)
+        for g in range(self.G):
+            if self.kinds[g] == KIND_FUSION_BLOCK:
+                out[:, g] = mm[:, self.modality[g]]
+        return out
+
+    def row_group_vector(self, D: int) -> np.ndarray:
+        """[D] group id per row of the fusion leaf."""
+        rg = np.zeros(D, np.int32)
+        for s, e, g in self.fusion_rows:
+            rg[s:e] = g
+        return rg
+
+    def row_index(self, D: int, device: torch.device) -> torch.Tensor:
+        """``row_group_vector(D)`` as an int64 tensor on ``device``, built
+        once per (D, device) so hot loops copy nothing to the card."""
+        key = (D, str(device))
+        if key not in self._row_index:
+            self._row_index[key] = torch.as_tensor(
+                self.row_group_vector(D), dtype=torch.int64, device=device)
+        return self._row_index[key]
+
+
+def mm_group_layout(cfg, trainable: dict) -> GroupLayout:
+    """Build the paper's G-group layout from an MMConfig + the Backbone-1
+    trainable tree (every parameter)."""
+    names: list[str] = []
+    kinds: list[str] = []
+    modality: list[int] = []
+    sizes: list[int] = []
+    leaf_group: dict[str, int] = {}
+    fusion_rows: list[tuple[int, int, int]] = []
+    fusion_a_path: str | None = None
+
+    def new_group(name, kind, mod):
+        names.append(name)
+        kinds.append(kind)
+        modality.append(mod)
+        sizes.append(0)
+        return len(names) - 1
+
+    # fusion blocks first (stable ids 0..M-1), then B
+    off = 0
+    for i, m in enumerate(cfg.modalities):
+        g = new_group(f"A_{m.name}", KIND_FUSION_BLOCK, i)
+        fusion_rows.append((off, off + m.d_feat, g))
+        off += m.d_feat
+    new_group("B_shared", KIND_FUSION_B, -1)
+
+    mod_index = {m.name: i for i, m in enumerate(cfg.modalities)}
+    enc_groups: dict[tuple[int, str], int] = {}
+    head_groups: dict[str, int] = {}
+
+    for p, leaf in leaves_with_path(trainable):
+        if "fusion_w0" in p:  # Backbone 1: the FC weight itself is blocked
+            fusion_a_path = p
+            dout = leaf.shape[1]
+            for s, e, g in fusion_rows:
+                sizes[g] += (e - s) * dout
+            continue
+        enc_mod = next((mod_index[nm] for nm in mod_index
+                        if f"['{nm}']" in p), None)
+        if enc_mod is not None:  # per-module encoder leaf (conv1/conv2/proj)
+            mname = cfg.modalities[enc_mod].name
+            toks = re.findall(r"\['(\w+)'\]", p)
+            label = toks[min(toks.index(mname) + 1, len(toks) - 1)]
+            kk = (enc_mod, label)
+            if kk not in enc_groups:
+                enc_groups[kk] = new_group(f"E_{mname}_{label}",
+                                           KIND_ENCODER, enc_mod)
+            leaf_group[p] = enc_groups[kk]
+            sizes[enc_groups[kk]] += leaf.numel()
+            continue
+        # head (and any remaining global leaf): one group per head layer
+        label = re.findall(r"\['(\w+)'\]", p)[-1]
+        if label not in head_groups:
+            head_groups[label] = new_group(f"H_{label}", KIND_HEAD, -1)
+        leaf_group[p] = head_groups[label]
+        sizes[head_groups[label]] += leaf.numel()
+
+    sizes_np = np.array(sizes, np.int64)
+    flops = np.maximum(sizes_np.astype(np.float64), 1.0)
+    return GroupLayout(names, kinds, np.array(modality, np.int32), sizes_np,
+                       flops, leaf_group, {}, fusion_a_path, fusion_rows,
+                       cfg.M)
+
+
+def group_gate_tree(layout: GroupLayout, tree: Any,
+                    gate: torch.Tensor) -> Any:
+    """gate: [*B, G] -> tree with per-group gates applied (fusion rows get
+    their block's gate); leaves carry the same leading ``*B`` axes. Used to
+    mask gradients (elastic training) and uploads (Eq. 8)."""
+    nb = gate.dim() - 1
+
+    def gate_leaf(p, leaf):
+        if p == layout.fusion_a_path:
+            rg = layout.row_index(leaf.shape[nb], leaf.device)
+            g = gate[..., rg].to(leaf.dtype)  # [*B, D]
+            return leaf * g.reshape(g.shape + (1,) * (leaf.dim() - nb - 1))
+        if p in layout.leaf_group:
+            g = gate[..., layout.leaf_group[p]].to(leaf.dtype)  # [*B]
+            return leaf * g.reshape(g.shape + (1,) * (leaf.dim() - nb))
+        return leaf * 0
+
+    return map_with_path(gate_leaf, tree)
+
+
+def group_norms(layout: GroupLayout, tree: Any,
+                batch_dims: int = 0) -> torch.Tensor:
+    """Per-group squared Frobenius norms -> [*B, G] float32, where the
+    leaves carry ``batch_dims`` leading axes ``*B``."""
+    acc = None
+    for p, leaf in leaves_with_path(tree):
+        x32 = leaf.float()
+        if acc is None:
+            acc = torch.zeros(x32.shape[:batch_dims] + (layout.G,),
+                              dtype=torch.float32, device=x32.device)
+        if p == layout.fusion_a_path:
+            rg = layout.row_index(leaf.shape[batch_dims], leaf.device)
+            per_row = x32.square().sum(
+                dim=tuple(range(batch_dims + 1, x32.dim())))  # [*B, D]
+            acc = acc.index_add(batch_dims, rg, per_row)
+        elif p in layout.leaf_group:
+            s = x32.square().sum(dim=tuple(range(batch_dims, x32.dim())))
+            acc[..., layout.leaf_group[p]] += s
+    return acc

@@ -1,0 +1,139 @@
+"""Wrappers for the fused cohort aggregation + divergence kernels.
+
+Dispatch is by the tensor's device, with no fallback: a CPU tensor goes to
+the plain version in ``ref.py``; a CUDA tensor launches the CUDA kernel in
+``csrc/cohort_agg.cu`` or raises. ``LAUNCHES`` counts kernel launches per op
+(never the plain version), so a run can show its flushes went through the
+kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import runtime
+from repro_torch.kernels.cohort_agg import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "cohort_agg.cu"
+# stage 1 puts at most this many blocks per SM in flight before splitting N
+# further buys nothing, and gives each split at least MIN_CLIENTS clients
+BLOCKS_PER_SM = 4
+MIN_CLIENTS = 8
+
+LAUNCHES = {"cohort_agg_divergence": 0, "cohort_agg_divergence_quant": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = runtime.load_library(SOURCE)
+    lib.cohort_agg_tile.argtypes = []
+    lib.cohort_agg_tile.restype = _I
+    lib.cohort_agg_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                   _P, _P]
+    lib.cohort_agg_f32.restype = _I
+    lib.cohort_agg_i8.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, _I, _I,
+                                  _I, _I, _P, _P, _P, _P, _P, _P]
+    lib.cohort_agg_i8.restype = _I
+    return lib
+
+
+def split_count(N: int, D: int, r: int, device: torch.device) -> int:
+    """Client splits of stage 1: enough blocks to fill the SMs, a fixed
+    function of the shape and the card (so results are reproducible)."""
+    tiles = -(-D * r // _lib().cohort_agg_tile())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-N // MIN_CLIENTS), -(-BLOCKS_PER_SM * sms // tiles),
+                      65535))
+
+
+def _check(x: torch.Tensor, x_dtype: torch.dtype, W: torch.Tensor,
+           C: torch.Tensor) -> tuple[int, int, int]:
+    if x.dim() != 3:
+        raise ValueError(f"deltas must be [N, D, r], got {tuple(x.shape)}")
+    N, D, r = x.shape
+    if min(N, D, r) < 1 or max(N, D, r) >= 2**31:
+        raise ValueError(f"unsupported deltas shape {tuple(x.shape)}")
+    runtime.check_cuda_tensor("deltas", x, x_dtype, (N, D, r), x.device)
+    runtime.check_cuda_tensor("W", W, torch.float32, (N, D), x.device)
+    runtime.check_cuda_tensor("C", C, torch.float32, (N, D), x.device)
+    return N, D, r
+
+
+def _outputs(N: int, D: int, r: int, device: torch.device):
+    S = split_count(N, D, r, device)
+    ws = torch.empty(S * (3 * D * r + D), dtype=torch.float32, device=device)
+    agg = torch.empty((D, r), dtype=torch.float32, device=device)
+    mean = torch.empty((D, r), dtype=torch.float32, device=device)
+    sq = torch.empty((D,), dtype=torch.float32, device=device)
+    cnt = torch.empty((D,), dtype=torch.float32, device=device)
+    return S, ws, agg, sq, mean, cnt
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _device_kind(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def cohort_agg_divergence(deltas, W, C):
+    """deltas [N, D, r] f32, W [N, D] (Eq. 3/4 weights), C [N, D] (Eq. 5
+    cohort) -> (agg [D,r], sqsum [D], mean [D,r], cnt [D])."""
+    if _device_kind(deltas) == "cpu":
+        return ref.cohort_agg_divergence_ref(deltas, W, C)
+    N, D, r = _check(deltas, torch.float32, W, C)
+    S, ws, agg, sq, mean, cnt = _outputs(N, D, r, deltas.device)
+    with torch.cuda.device(deltas.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().cohort_agg_f32(
+            deltas.data_ptr(), W.data_ptr(), C.data_ptr(), N, D, r, S,
+            ws.data_ptr(), agg.data_ptr(), sq.data_ptr(), mean.data_ptr(),
+            cnt.data_ptr(), stream)
+    _raise_on(err, "cohort_agg_divergence")
+    LAUNCHES["cohort_agg_divergence"] += 1
+    return agg, sq, mean, cnt
+
+
+def cohort_agg_divergence_quant(q, scales, W, C, staleness,
+                                exponent: float = 0.0):
+    """Fused quantized-ingest aggregation: one pass over the int8 uplink.
+
+    q [N, D, r] int8 client chunks, scales [N] per-(client, leaf) dequant
+    scales, W/C [N, D], staleness [N] server versions since pull. Equals
+    ``cohort_agg_divergence(q * scales, W / (1+staleness)**exponent, C)``
+    without materializing the fp32 [N, D, r] stack.
+    """
+    if _device_kind(q) == "cpu":
+        return ref.cohort_agg_divergence_quant_ref(q, scales, W, C,
+                                                   staleness, exponent)
+    N, D, r = _check(q, torch.int8, W, C)
+    runtime.check_cuda_tensor("scales", scales, torch.float32, (N,),
+                              q.device)
+    runtime.check_cuda_tensor("staleness", staleness, torch.float32, (N,),
+                              q.device)
+    S, ws, agg, sq, mean, cnt = _outputs(N, D, r, q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().cohort_agg_i8(
+            q.data_ptr(), scales.data_ptr(), W.data_ptr(), C.data_ptr(),
+            staleness.data_ptr(), float(exponent), N, D, r, S,
+            ws.data_ptr(), agg.data_ptr(), sq.data_ptr(), mean.data_ptr(),
+            cnt.data_ptr(), stream)
+    _raise_on(err, "cohort_agg_divergence_quant")
+    LAUNCHES["cohort_agg_divergence_quant"] += 1
+    return agg, sq, mean, cnt

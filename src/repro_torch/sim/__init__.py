@@ -1,0 +1,4 @@
+from repro_torch.sim.devices import (DEVICE_PROFILES, DeviceProfile,
+                                     FleetConfig, make_fleet, scale_fleet)
+from repro_torch.sim.events import AsyncTrace, EventQueue, completion_times
+from repro_torch.sim.timing import RoundCost, cycle_times, simulate_round
