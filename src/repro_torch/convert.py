@@ -14,11 +14,19 @@ import torch
 from repro_torch.tree import tree_map
 
 
+def _tensor(x: Any, device: torch.device | str) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX gives it
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(x, device=device)
+
+
 def params_from_numpy(tree: Any, device: torch.device | str) -> Any:
     """Nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray, p)``)
-    -> the same nested dict of tensors on ``device``."""
-    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device),
-                    tree)
+    -> the same nested dict of tensors on ``device``. bf16 leaves keep their
+    bits."""
+    return tree_map(lambda x: _tensor(x, device), tree)
 
 
 def params_to_numpy(tree: Any) -> Any:

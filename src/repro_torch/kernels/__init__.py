@@ -1,4 +1,13 @@
 # Kernels written by hand for Hopper (sm_90a), one package per TPU kernel
 # family of ``repro.kernels``. Each package: csrc/ (CUDA sources), ops.py
 # (device dispatch + launch counters), ref.py (plain PyTorch versions).
-#   cohort_agg  fused cohort-masked aggregation + divergence (Eq. 3 + 5)
+#   cohort_agg       fused cohort-masked aggregation + divergence (Eq. 3 + 5)
+#   flash_attention  online-softmax GQA attention (serving prefill/decode)
+#   mdlora           gathered multi-adapter block-LoRA projection (engine)
+from repro_torch.kernels.cohort_agg.ops import (cohort_agg_divergence,
+                                                cohort_agg_divergence_quant)
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.mdlora.ops import mdlora_matmul_multi
+
+__all__ = ["cohort_agg_divergence", "cohort_agg_divergence_quant",
+           "flash_attention", "mdlora_matmul_multi"]

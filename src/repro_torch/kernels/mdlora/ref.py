@@ -1,0 +1,35 @@
+"""Plain PyTorch versions of the fused block-LoRA projections.
+
+    y = (x * row_mask) @ W0  +  ((x * row_mask) @ a) @ b * scale
+
+``row_mask`` zeroes the input rows of absent modality blocks (Eq. 1/2).
+Both products run in fp32 and the result is cast to x's dtype, as in the
+kernels. ``mdlora_matmul_ref`` (one adapter for every row) is the per-row
+oracle of the tests; its kernel is not ported.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def mdlora_matmul_ref(x, w0, a, b, row_mask, scale):
+    """x [T, D]; w0 [D, F]; a [D, r]; b [r, F]; row_mask [D] -> [T, F]."""
+    xm = x.float() * row_mask.float()[None, :]
+    lora = (xm @ a.float()) @ b.float() * scale
+    return (xm @ w0.float() + lora).to(x.dtype)
+
+
+def mdlora_matmul_multi_ref(x, w0, a, b, adapter_idx, row_mask, scale):
+    """Gathered multi-adapter projection (S-LoRA/punica-style decode).
+
+        y[i] = (x[i] * mask[i]) @ W0
+             + ((x[i] * mask[i]) @ a[idx[i]]) @ b[idx[i]] * scale
+
+    x [B, D]; w0 [D, F]; a [A, D, r]; b [A, r, F]; adapter_idx [B] int;
+    row_mask [B, D] or None (all rows present) -> [B, F] in x's dtype.
+    """
+    xm = x.float() if row_mask is None else x.float() * row_mask.float()
+    idx = adapter_idx.long()
+    u = torch.einsum("bd,bdr->br", xm, a[idx].float())
+    lora = torch.einsum("br,brf->bf", u, b[idx].float()) * scale
+    return (xm @ w0.float() + lora).to(x.dtype)
