@@ -38,6 +38,23 @@ Phases, each printing its lines (and its wall time) before the last:
   9. serve check  a float32 phi3-shaped model of 2 layers: engine tokens on
               the card equal the CPU's and the card's per-request baseline;
               batched-serve logits and tokens on the card equal the CPU's
+ 10. ssd kernel  the SSD chunked scan vs its plain version at the prefill
+              step's shapes (mamba2-1.3b and hymba-1.5b heads, B=4, S=4096,
+              bf16 and fp32) and an odd small shape, two calls bitwise
+              equal, and vs the token-by-token recurrence
+ 11. mamba2   mamba2-1.3b FULL (48 layers, bf16, random weights drawn on the
+              card): ``step_fns.make_prefill_step`` at B=4, S=4096 (one SSD
+              launch per layer), then ``serve.run_batched`` at B=8, P=64, 32
+              decode steps (token-loop prefill, O(1) decode; no kernel)
+ 12. hymba    hymba-1.5b FULL (32 layers): the same prefill step, then
+              ``serve.run_engine`` with 16 adapters, fusion masks over the
+              (attention, SSD) blocks, 8 slots, 16 requests of 8-32 prompt
+              tokens and 16 new tokens each (the gathered projection on wq,
+              wv and the fusion wo)
+ 13. recurrent check  mamba2 and hymba SMOKE in fp32: prefill-step logits on
+              the card equal the CPU's; hymba engine tokens on the card equal
+              the CPU's and the card's per-request baseline
+Each path's launch counts are zeroed just before it and read just after.
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero,
 and without a card, or without the repository's ``src/`` beside it, the
@@ -77,6 +94,7 @@ KERNELS = {
         "src/repro/kernels/cohort_agg/kernel.py:130",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
     "mdlora_matmul_multi": "src/repro/kernels/mdlora/kernel.py:70",
+    "ssd": "src/repro/kernels/ssd/kernel.py:65",
 }
 PATH_SHAPE = (4, 112, 128)  # K=4 buffered clients x fusion_w0 [112, 128]
 CASES = [("path", PATH_SHAPE, False), ("ragged", (9, 100, 1), False),
@@ -372,15 +390,22 @@ FA_CASES = [  # label, B, S, T, K, G, hd, filled, window, softcap, bf16?
 # a softmax-weighted mean of ~500 random v rows) to ~4 (early prefill rows see
 # a few keys), so the bound is relative, with an atol for the smallest
 FA_TOL = {True: (4e-3, 2**-8), False: (2e-5, 0.0)}  # by bf16?
-MD_CASES = [  # label, B, D, F, A, r, masked, bf16?
-    ("wq", 16, 5120, 5120, 16, 8, False, True),
-    ("wv", 16, 5120, 1280, 16, 8, False, True),
-    ("wo", 16, 5120, 5120, 16, 8, True, True),
-    ("wo fp32", 16, 5120, 5120, 16, 8, True, False),
+PHI3_BLOCKS = [512] * 10  # phi3: G * head_dim = 4 * 128 columns per KV group
+HYMBA_BLOCKS = [1600, 3200]  # hymba's fusion input: attention, SSD heads
+MD_CASES = [  # label, B, D, F, A, r, fusion blocks (None: no mask), bf16?
+    ("wq", 16, 5120, 5120, 16, 8, None, True),
+    ("wv", 16, 5120, 1280, 16, 8, None, True),
+    ("wo", 16, 5120, 5120, 16, 8, PHI3_BLOCKS, True),
+    ("wo fp32", 16, 5120, 5120, 16, 8, PHI3_BLOCKS, False),
+    # hymba-1.5b: D = 1600 and 4800 are not multiples of the 256-wide
+    # staging chunk, and the block edge at 1600 falls inside one
+    ("hymba wq", 16, 1600, 1600, 16, 8, None, True),
+    ("hymba wv", 16, 1600, 320, 16, 8, None, True),
+    ("hymba wo", 16, 4800, 1600, 16, 8, HYMBA_BLOCKS, True),
+    ("hymba wo fp32", 16, 4800, 1600, 16, 8, HYMBA_BLOCKS, False),
 ]
 MD_TOL_FP32 = (1e-4, 1e-4)
 MD_TOL_BF16 = (2e-2, 1e-2)  # against the plain version's bf16 output
-FUSION_BLOCK = 512  # phi3: G * head_dim = 4 * 128 columns per KV group
 
 
 L2_BYTES = 50e6  # H100 L2 cache
@@ -490,7 +515,7 @@ def check_flash(torch, fa_ops, fa_ref) -> dict:
     return out
 
 
-def _md_inputs(torch, md_ops, B, D, F, A, r, masked, bf16, seed):
+def _md_inputs(torch, md_ops, B, D, F, A, r, blocks, bf16, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(device="cuda", generator=g)
     dt = torch.bfloat16 if bf16 else torch.float32
@@ -501,19 +526,19 @@ def _md_inputs(torch, md_ops, B, D, F, A, r, masked, bf16, seed):
     idx = torch.randint(0, A, (B,), device="cuda", generator=g,
                         dtype=torch.int32)
     mask = None
-    if masked:
-        mm = (torch.rand((B, D // FUSION_BLOCK), **kw) < 0.8).float()
+    if blocks:
+        mm = (torch.rand((B, len(blocks)), **kw) < 0.8).float()
         mm[:, 0] = 1.0
-        mask = md_ops.block_row_masks([FUSION_BLOCK] * (D // FUSION_BLOCK),
-                                      mm).contiguous()
+        mask = md_ops.block_row_masks(blocks, mm).contiguous()
     return x, w0, a, b, idx, mask
 
 
 def check_mdlora(torch, md_ops, md_ref) -> dict:
     out = {}
-    for label, B, D, F, A, r, masked, bf16 in MD_CASES:
+    for label, B, D, F, A, r, blocks, bf16 in MD_CASES:
+        masked = blocks is not None
         x, w0, a, b, idx, mask = _md_inputs(torch, md_ops, B, D, F, A, r,
-                                            masked, bf16, D + F)
+                                            blocks, bf16, D + F)
         sets = _copies(torch, (x, w0, a, b, mask))
         kern = _rotating(sets, lambda x, w0, a, b, mask:
                          md_ops.mdlora_matmul_multi(x, w0, a, b, idx, mask,
@@ -539,7 +564,7 @@ def check_mdlora(torch, md_ops, md_ref) -> dict:
         flops = 2 * B * D * F + 2 * B * r * (D + F) + (B * D if masked else 0)
         b_ms, by = _bound(nbytes, flops, _flops_peak(torch, x))
         say(f"[mdlora] {label} B={B} D={D} F={F} A={A} ({used} used) r={r} "
-            f"{'masked' if masked else 'no mask'} "
+            f"{f'masked in {len(blocks)} blocks' if masked else 'no mask'} "
             f"{'bf16' if bf16 else 'fp32'}: max abs err "
             f"{err.max().item():.2e} | device {ms * 1e3:.2f} us/call "
             f"(graph), eager call {call_ms * 1e3:.2f} us, plain "
@@ -576,24 +601,29 @@ ENGINE = dict(n_adapters=16, batch=16, n_requests=32, prompt_len=256,
               min_prompt_len=64, decode_steps=32)
 
 
-def _launch_counts(fa_ops, md_ops) -> tuple[int, int]:
-    return (fa_ops.LAUNCHES["flash_attention"],
-            md_ops.LAUNCHES["mdlora_matmul_multi"])
+def _counts(kops) -> dict:
+    """Launch counts of the serving kernels: ``kops`` holds the flash,
+    mdlora and ssd ops modules."""
+    out = {}
+    for ops in kops:
+        out.update(ops.LAUNCHES)
+    return out
 
 
-def _reset(fa_ops, md_ops) -> None:
-    fa_ops.reset_launches()
-    md_ops.reset_launches()
+def _reset_all(kops) -> None:
+    for ops in kops:
+        ops.reset_launches()
 
 
-def serve_batched(torch, serve, fa_ops, md_ops, cfg, params) -> int:
+def serve_batched(torch, serve, kops, cfg, params) -> int:
     # cold start (cuBLAS handles, allocator growth) outside the window
     serve.run_batched(cfg, params, batch=SERVE["batch"],
                       prompt_len=SERVE["prompt_len"], decode_steps=2,
                       device="cuda")
-    _reset(fa_ops, md_ops)
+    _reset_all(kops)
     res = serve.run_batched(cfg, params, device="cuda", **SERVE)
-    fa, md = _launch_counts(fa_ops, md_ops)
+    n = _counts(kops)
+    fa, md = n["flash_attention"], n["mdlora_matmul_multi"]
     want = cfg.n_layers * (1 + SERVE["decode_steps"])
     say(f"[serve] kernel launches: flash_attention {fa} (expected {want} = "
         f"{cfg.n_layers} layers x (1 prefill + {SERVE['decode_steps']} "
@@ -612,12 +642,13 @@ def serve_batched(torch, serve, fa_ops, md_ops, cfg, params) -> int:
     return fa
 
 
-def serve_engine(torch, serve, fa_ops, md_ops, cfg, params) -> int:
+def serve_engine(torch, serve, kops, cfg, params) -> int:
     serve.run_engine(cfg, params, n_adapters=2, batch=2, n_requests=2,
                      prompt_len=64, decode_steps=2, device="cuda")
-    _reset(fa_ops, md_ops)
+    _reset_all(kops)
     res = serve.run_engine(cfg, params, device="cuda", **ENGINE)
-    fa, md = _launch_counts(fa_ops, md_ops)
+    n = _counts(kops)
+    fa, md = n["flash_attention"], n["mdlora_matmul_multi"]
     steps = len(res["decode_step_times"])
     want = 3 * cfg.n_layers * steps
     say(f"[engine] kernel launches: mdlora_matmul_multi {md} (expected "
@@ -652,7 +683,7 @@ def serve_engine(torch, serve, fa_ops, md_ops, cfg, params) -> int:
 CHECK_ATOL = 1e-4  # fp32 logits, sums in another order over 2 layers
 
 
-def serve_check(torch, serve, serving_engine, api, fa_ops, md_ops, tree_map,
+def serve_check(torch, serve, serving_engine, api, kops, tree_map,
                 full) -> None:
     cfg = dataclasses.replace(
         full, arch="phi3-medium-14b-check", n_layers=2, d_model=512,
@@ -662,7 +693,7 @@ def serve_check(torch, serve, serving_engine, api, fa_ops, md_ops, tree_map,
     gpu = tree_map(lambda t: t.to("cuda"), cpu)
     kw = dict(n_adapters=4, batch=4, n_requests=10, prompt_len=40,
               min_prompt_len=8, decode_steps=8, seed=1)
-    _reset(fa_ops, md_ops)
+    _reset_all(kops)
     eg = serve.run_engine(cfg, gpu, device="cuda", **kw)
     ec = serve.run_engine(cfg, cpu, device="cpu", **kw)
     naive = serving_engine.naive_serve(gpu, cfg, eg["registry"],
@@ -670,7 +701,8 @@ def serve_check(torch, serve, serving_engine, api, fa_ops, md_ops, tree_map,
     bkw = dict(batch=4, prompt_len=40, decode_steps=8, seed=1)
     bg = serve.run_batched(cfg, gpu, device="cuda", **bkw)
     bc = serve.run_batched(cfg, cpu, device="cpu", **bkw)
-    fa, md = _launch_counts(fa_ops, md_ops)
+    n = _counts(kops)
+    fa, md = n["flash_attention"], n["mdlora_matmul_multi"]
     err = (bg["prefill_logits"] - bc["prefill_logits"]).abs().max().item()
     say(f"[check] fp32 phi3-shaped model (2 layers, d 512, 8 heads / 2 KV, "
         f"hd 64): engine tokens card == CPU: {eg['outputs'] == ec['outputs']}"
@@ -686,6 +718,295 @@ def serve_check(torch, serve, serving_engine, api, fa_ops, md_ops, tree_map,
         fail("serve check: engine tokens differ (card vs CPU or vs naive)")
     if err > CHECK_ATOL or not (bg["tokens"] == bc["tokens"]).all():
         fail("serve check: batched serve on the card differs from the CPU")
+
+
+# -- phase 10 ---------------------------------------------------------------
+
+# the SSD scan at the prefill step's shapes (B=4, S=4096): mamba2-1.3b's 64
+# heads of 64 with state 128, hymba-1.5b's 50 heads with state 16
+SSD_CASES = [  # label, b, s, h, p, n, chunk, bf16?
+    ("mamba2", 4, 4096, 64, 64, 128, 64, True),
+    ("mamba2 fp32", 4, 4096, 64, 64, 128, 64, False),
+    ("hymba", 4, 4096, 50, 64, 16, 64, True),
+    ("hymba fp32", 4, 4096, 50, 64, 16, 64, False),
+    ("odd", 2, 96, 3, 24, 8, 32, False),
+]
+# |kernel - plain| <= atol + rtol |plain| + (SSD_SUM_RTOL + SSD_CUM_ULPS u
+# C) S, with the plain version in fp32 on the same values, S the same scan
+# over |x|, |B|, |C|, u = 2^-24 and C the largest log-decay of a chunk,
+# max |cum|. Both sides sum over n, Q and the chunks in other orders, so
+# their difference grows with S; and both take exp(cum_i - cum_j) from
+# running sums that reach C (~1000 at the models' A = 1..16 and dt ~ 0.7 over
+# 64 steps), each rounded in its own order, so every decayed term carries a
+# relative error of a few ulps of C. S bounds the sum of |terms| ~10x over;
+# a dropped or doubled term moves y by more than a thirtieth of S. bf16 y
+# is rounded once (2^-9 of its value); the atol covers y near zero
+SSD_TOL = {True: (1e-3, 2**-8), False: (1e-4, 1e-4)}  # by bf16?
+SSD_SUM_RTOL = 1e-6
+SSD_CUM_ULPS = 16
+
+
+def _ssd_inputs(torch, b, s, h, p, n, bf16, seed):
+    """x, B, C ~ N(0, 1); dt = softplus(N(0, 1)); A_log as the models
+    initialize it, log(linspace(1, 16, h))."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    dt_ = torch.bfloat16 if bf16 else torch.float32
+    x = torch.randn((b, s, h, p), **kw).to(dt_)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), **kw))
+    A_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    Bm = torch.randn((b, s, n), **kw).to(dt_)
+    Cm = torch.randn((b, s, n), **kw).to(dt_)
+    return x, dt, A_log, Bm, Cm
+
+
+def _ssd_work(b, s, h, p, n, Q, es) -> tuple[int, int]:
+    """(bytes, flops) the scan needs: x, dt, A_log, B, C read once, y and
+    the final state written once; C·Bᵀ once per (batch row, chunk) over the
+    causal pairs, then per head the intra-chunk product over the causal
+    pairs, the carried state's term and the state update."""
+    nbytes = 2 * b * s * h * p * es + 4 * b * s * h + 4 * h \
+        + 2 * b * s * n * es + 4 * b * h * p * n
+    pairs = Q * (Q + 1) // 2
+    nc = s // Q
+    flops = 2 * b * nc * (pairs * n + h * (pairs * p + 2 * Q * p * n))
+    return nbytes, flops
+
+
+def check_ssd(torch, ssd_ops, ssd_ref, ssm) -> dict:
+    out = {}
+    for label, b, s, h, p, n, Q, bf16 in SSD_CASES:
+        x, dt, A_log, Bm, Cm = _ssd_inputs(torch, b, s, h, p, n, bf16,
+                                           b + s + h + p + n)
+        got = ssd_ops.ssd(x, dt, A_log, Bm, Cm, Q)
+        again = ssd_ops.ssd(x, dt, A_log, Bm, Cm, Q)
+        f = lambda t: t.float()  # noqa: E731
+        want = ssd_ref.ssd_ref(f(x), dt, A_log, f(Bm), f(Cm), Q)
+        scale = ssd_ref.ssd_ref(f(x).abs(), dt, A_log, f(Bm).abs(),
+                                f(Cm).abs(), Q)
+        exact = ssd_ref.ssd_ref(x.double(), dt, A_log, Bm, Cm, Q,
+                                compute_dtype=torch.float64)
+        C = (torch.exp(A_log) * dt).reshape(b, s // Q, Q, h).sum(2).max()
+        sum_rtol = SSD_SUM_RTOL + SSD_CUM_ULPS * 2**-24 * C.item()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1], again[1])):
+            fail(f"ssd {label}: two calls differ")
+        errs, vs64 = [], []
+        for o, a, w, S, e, (atol, rtol) in zip(
+                ("y", "state"), got, want, scale, exact,
+                (SSD_TOL[bf16], SSD_TOL[False])):
+            if not torch.isfinite(a).all():
+                fail(f"ssd {label} {o}: non-finite output")
+            err = (a.float() - w).abs()
+            if (err > atol + rtol * w.abs() + sum_rtol * S).any():
+                fail(f"ssd {label} {o}: max abs err {err.max().item():.3e} "
+                     f"exceeds {atol} + {rtol:.4g}*|plain| + "
+                     f"{sum_rtol:.3g}*S")
+            errs.append((o, err.max().item()))
+            vs64.append(f"{o} kernel {(a.double() - e).abs().max().item():.2e}"
+                        f" plain {(w.double() - e).abs().max().item():.2e}")
+        del exact
+        sets = _copies(torch, (x, dt, Bm, Cm))
+        kern = _rotating(sets, lambda x, dt, Bm, Cm: ssd_ops.ssd(
+            x, dt, A_log, Bm, Cm, Q))
+        plain = _rotating(sets, lambda x, dt, Bm, Cm: ssd_ref.ssd_ref(
+            x, dt, A_log, Bm, Cm, Q))
+        big = b * s > 1024
+        ms, call_ms = time_ms(torch, kern, 10 if big else 200)
+        plain_ms, _ = time_ms(torch, plain, 3 if big else 20)
+        nbytes, flops = _ssd_work(b, s, h, p, n, Q, x.element_size())
+        b_ms, by = _bound(nbytes, flops, _flops_peak(torch, x))
+        say(f"[ssd] {label} b={b} s={s} h={h} p={p} n={n} chunk={Q} "
+            f"{'bf16' if bf16 else 'fp32'}: max abs err "
+            + " ".join(f"{o} {e:.2e}" for o, e in errs)
+            + f" (atol {SSD_TOL[bf16][0]} + {SSD_TOL[bf16][1]:.4g}*|plain"
+            f" fp32| + {sum_rtol:.3g}*S, C {C.item():.0f}); vs the plain "
+            f"version in fp64: {', '.join(vs64)}; two calls bitwise equal "
+            f"| device "
+            f"{ms * 1e3:.2f} us/call (graph), eager call {call_ms * 1e3:.2f}"
+            f" us, plain {plain_ms * 1e3:.2f} us, library n/a | bound "
+            f"{b_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP) = {b_ms / ms:.1%}")
+        out[label] = dict(max_abs_err=max(e for _, e in errs), ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                          library_ms=None)
+        del sets, kern, plain
+    # the sequential recurrence, at a small shape
+    x, dt, A_log, Bm, Cm = _ssd_inputs(torch, 1, 64, 2, 8, 4, False, 0)
+    y, fs = ssd_ops.ssd(x, dt, A_log, Bm, Cm, 16)
+    state = torch.zeros((1, 2, 8, 4), device="cuda")
+    err = 0.0
+    for t in range(64):
+        yt, state = ssm.ssd_decode_step(state, x[:, t], dt[:, t], A_log,
+                                        Bm[:, t], Cm[:, t])
+        err = max(err, (y[:, t] - yt).abs().max().item())
+    err = max(err, (fs - state).abs().max().item())
+    say(f"[ssd] vs the token-by-token recurrence (b=1 s=64 h=2 p=8 n=4 "
+        f"chunk=16 fp32): max abs err {err:.2e} (atol 1e-4)")
+    if err > 1e-4:
+        fail("ssd disagrees with the sequential recurrence")
+    return out
+
+
+# -- phases 11-12 -------------------------------------------------------------
+
+PREFILL = dict(batch=4, seq=4096)
+MAMBA_SERVE = dict(batch=8, prompt_len=64, decode_steps=32)
+HYMBA_ENGINE = dict(n_adapters=16, batch=8, n_requests=16, prompt_len=32,
+                    min_prompt_len=8, decode_steps=16)
+
+
+def recurrent_params(torch, serve, api, cfg) -> dict:
+    t0 = time.perf_counter()
+    params = serve.init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    say(f"[{cfg.arch}] FULL ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.dtype}): {api.param_count(params) / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card, drawn in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return params
+
+
+def prefill_step(torch, step_fns, kops, cfg, params) -> int:
+    """``step_fns.make_prefill_step`` at B=4, S=4096: one SSD launch per
+    layer."""
+    B, S = PREFILL["batch"], PREFILL["seq"]
+    step = step_fns.make_prefill_step(cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device="cuda",
+                           dtype=torch.int32)
+    step(params, {"tokens": tokens[:, :cfg.ssd_chunk]})  # cold start
+    torch.cuda.synchronize()
+    _reset_all(kops)
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _counts(kops)
+    say(f"[{cfg.arch}] prefill step B={B} S={S}: kernel launches {n} "
+        f"(expected ssd {cfg.n_layers} = one per layer, the others 0)")
+    if n["ssd"] != cfg.n_layers or n["flash_attention"] or \
+            n["mdlora_matmul_multi"]:
+        fail(f"{cfg.arch} prefill step did not launch the SSD kernel once "
+             "per layer")
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        fail(f"{cfg.arch} prefill step: bad logits {tuple(logits.shape)}")
+    say(f"[{cfg.arch}] prefill step B={B} S={S}: {wall * 1e3:.1f} ms host "
+        f"wall after synchronize ({B * S / wall:.0f} prompt tok/s); "
+        f"last-position logits {tuple(logits.shape)} finite")
+    return n["ssd"]
+
+
+def mamba_serve(torch, serve, kops, cfg, params) -> None:
+    serve.run_batched(cfg, params, batch=MAMBA_SERVE["batch"], prompt_len=4,
+                      decode_steps=2, device="cuda")  # cold start
+    _reset_all(kops)
+    res = serve.run_batched(cfg, params, device="cuda", **MAMBA_SERVE)
+    n = _counts(kops)
+    B, P, steps = (MAMBA_SERVE["batch"], MAMBA_SERVE["prompt_len"],
+                   MAMBA_SERVE["decode_steps"])
+    say(f"[{cfg.arch}] batched serve: kernel launches {n} (expected none: "
+        "the prefill is the token loop of decode steps, and decode is the "
+        "O(1) recurrence)")
+    if any(n.values()):
+        fail(f"{cfg.arch} batched serve launched a kernel off its path")
+    if not torch.isfinite(res["prefill_logits"]).all():
+        fail(f"{cfg.arch} batched serve: non-finite logits")
+    state_bytes = 4 * cfg.n_layers * B * cfg.d_inner * cfg.ssm_state
+    say(f"[{cfg.arch}] batched serve B={B} P={P}: prefill (token loop) "
+        f"{res['prefill_s'] * 1e3:.1f} ms ({B * P / res['prefill_s']:.0f} "
+        f"prompt tok/s); decode {steps} steps in {res['decode_s']:.3f} s = "
+        f"{res['decode_ms_per_step']:.2f} ms per step, {res['tok_s']:.1f} "
+        f"tok/s; SSM state {state_bytes / 1e6:.0f} MB fp32 read and written "
+        f"per step; sample {res['tokens'][0, :8].tolist()}")
+
+
+def hymba_engine(torch, serve, kops, cfg, params) -> int:
+    serve.run_engine(cfg, params, n_adapters=2, batch=2, n_requests=2,
+                     prompt_len=8, decode_steps=2, device="cuda")
+    _reset_all(kops)
+    res = serve.run_engine(cfg, params, device="cuda", **HYMBA_ENGINE)
+    n = _counts(kops)
+    steps = len(res["decode_step_times"])
+    want = 3 * cfg.n_layers * steps
+    say(f"[{cfg.arch}] engine: kernel launches {n} (expected "
+        f"mdlora_matmul_multi {want} = wq, wv, fusion wo x {cfg.n_layers} "
+        f"layers x {steps} decode steps; the others 0: admissions prefill "
+        "by the token loop, and the attention is the plain chunked one)")
+    if n["mdlora_matmul_multi"] != want or n["flash_attention"] or n["ssd"]:
+        fail("the hymba engine did not launch the kernels as its path "
+             "requires")
+    n_req = HYMBA_ENGINE["n_requests"]
+    if len(res["outputs"]) != n_req or res["generated_tokens"] != \
+            n_req * HYMBA_ENGINE["decode_steps"]:
+        fail(f"hymba engine served {len(res['outputs'])} requests, "
+             f"{res['generated_tokens']} tokens")
+    if not all(0 <= t < cfg.vocab for v in res["outputs"].values()
+               for t in v):
+        fail("hymba engine: token ids outside the vocab")
+    st = sorted(res["decode_step_times"])
+    E = HYMBA_ENGINE
+    say(f"[{cfg.arch}] engine FULL: {n_req} requests ({E['n_adapters']} "
+        f"adapters, fusion masks over blocks {HYMBA_BLOCKS}, {E['batch']} "
+        f"slots, prompts {E['min_prompt_len']}-{E['prompt_len']} tokens, "
+        f"{E['decode_steps']} new tokens each): {res['generated_tokens']} "
+        f"tokens in {res['wall_s']:.2f} s = {res['tok_s']:.1f} tok/s; "
+        f"latency p50 {res['latency_p50_s']:.3f} s, p99 "
+        f"{res['latency_p99_s']:.3f} s; {steps} decode steps, p50 "
+        f"{st[len(st) // 2] * 1e3:.2f} ms, max {st[-1] * 1e3:.2f} ms; "
+        f"{res['n_steps']} engine steps")
+    return n["mdlora_matmul_multi"]
+
+
+# -- phase 13 ---------------------------------------------------------------
+
+
+def recurrent_check(torch, serve, serving_engine, step_fns, api, kops,
+                    tree_map, get_arch) -> None:
+    """mamba2 and hymba SMOKE in fp32: prefill-step logits on the card (SSD
+    kernel) vs the CPU (plain version); hymba engine tokens on the card
+    equal the CPU's and the card's per-request baseline."""
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        cfg = dataclasses.replace(get_arch(arch).SMOKE, attn_impl="pallas")
+        cpu = api.init_model(torch.Generator().manual_seed(3), cfg, "cpu")
+        gpu = tree_map(lambda t: t.to("cuda"), cpu)
+        tok = torch.randint(0, cfg.vocab, (3, 64), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(4))
+        step = step_fns.make_prefill_step(cfg)
+        _reset_all(kops)
+        lg = step(gpu, {"tokens": tok.to("cuda")}).cpu()
+        n = _counts(kops)
+        lc = step(cpu, {"tokens": tok})
+        err = (lg - lc).abs().max().item()
+        say(f"[check] {arch} SMOKE fp32 prefill step (B=3, S=64): logits "
+            f"card vs CPU max abs err {err:.2e} (atol {CHECK_ATOL}); card "
+            f"launches {n}")
+        if n["ssd"] != cfg.n_layers or err > CHECK_ATOL:
+            fail(f"{arch} prefill step on the card differs from the CPU or "
+                 "skipped the SSD kernel")
+        if cfg.family != "hybrid":
+            continue
+        kw = dict(n_adapters=3, batch=2, n_requests=5, prompt_len=12,
+                  min_prompt_len=4, decode_steps=6, seed=1)
+        _reset_all(kops)
+        eg = serve.run_engine(cfg, gpu, device="cuda", **kw)
+        n = _counts(kops)
+        ec = serve.run_engine(cfg, cpu, device="cpu", **kw)
+        naive = serving_engine.naive_serve(gpu, cfg, eg["registry"],
+                                           eg["requests"], eg["max_len"])
+        say(f"[check] {arch} SMOKE fp32 engine ({len(eg['outputs'])} "
+            f"requests over 2 slots, {eg['generated_tokens']} tokens, fusion "
+            f"blocks {eg['registry'].block_dims}): tokens card == CPU: "
+            f"{eg['outputs'] == ec['outputs']}, card == naive_serve: "
+            f"{eg['outputs'] == naive['outputs']}; card launches {n}")
+        if n["mdlora_matmul_multi"] == 0:
+            fail("hymba engine check: the card run skipped the gathered "
+                 "kernel")
+        if eg["outputs"] != ec["outputs"] or eg["outputs"] != \
+                naive["outputs"]:
+            fail("hymba engine check: tokens differ (card vs CPU or naive)")
 
 
 def main() -> None:
@@ -704,8 +1025,11 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.mdlora import ops as md_ops
     from repro_torch.kernels.mdlora import ref as md_ref
-    from repro_torch.launch import serve, serving_engine, train_async_har
-    from repro_torch.models import api
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.launch import (serve, serving_engine, step_fns,
+                                    train_async_har)
+    from repro_torch.models import api, ssm
     from repro_torch.tree import tree_map
 
     def phase(name, fn, *args):
@@ -715,10 +1039,12 @@ def main() -> None:
         say(f"[time] phase {name}: {time.perf_counter() - t0:.1f}s wall")
         return out
 
+    kops = (fa_ops, md_ops, ssd_ops)
     sources = {"cohort_agg_divergence": ops.SOURCE,
                "cohort_agg_divergence_quant": ops.SOURCE,
                "flash_attention": fa_ops.SOURCE,
-               "mdlora_matmul_multi": md_ops.SOURCE}
+               "mdlora_matmul_multi": md_ops.SOURCE,
+               "ssd": ssd_ops.SOURCE}
     phase("build", build_kernels, runtime, sorted(set(sources.values())))
     results = phase("kernels", check_kernels, torch, ops, ref)
     launches = phase("main", main_path, torch, ops, train_async_har, 12)
@@ -738,13 +1064,32 @@ def main() -> None:
         f"parameters, {torch.cuda.memory_allocated() / 1e9:.1f} GB on the "
         f"card, drawn in {time.perf_counter() - t0:.1f}s")
     launches["flash_attention"] = phase(
-        "serve", serve_batched, torch, serve, fa_ops, md_ops, full, params)
+        "serve", serve_batched, torch, serve, kops, full, params)
     launches["mdlora_matmul_multi"] = phase(
-        "engine", serve_engine, torch, serve, fa_ops, md_ops, full, params)
+        "engine", serve_engine, torch, serve, kops, full, params)
     del params
     torch.cuda.empty_cache()
     phase("serve check", serve_check, torch, serve, serving_engine, api,
-          fa_ops, md_ops, tree_map, full)
+          kops, tree_map, full)
+    results["ssd"] = phase("ssd kernel", check_ssd, torch, ssd_ops, ssd_ref,
+                           ssm)["mamba2"]
+    launches["ssd"] = 0
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        cfg = dataclasses.replace(get_arch(arch).FULL, attn_impl="pallas")
+        params = recurrent_params(torch, serve, api, cfg)
+        launches["ssd"] += phase(f"{arch} prefill step", prefill_step, torch,
+                                 step_fns, kops, cfg, params)
+        if arch == "mamba2-1.3b":
+            phase(f"{arch} batched serve", mamba_serve, torch, serve, kops,
+                  cfg, params)
+        else:
+            launches["mdlora_matmul_multi"] += phase(
+                f"{arch} engine", hymba_engine, torch, serve, kops, cfg,
+                params)
+        del params
+        torch.cuda.empty_cache()
+    phase("recurrent check", recurrent_check, torch, serve, serving_engine,
+          step_fns, api, kops, tree_map, get_arch)
     lines = []
     for name, replaces in KERNELS.items():
         lines.append(dict(

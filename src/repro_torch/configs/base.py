@@ -4,8 +4,8 @@
 defaults, so a reference config converts field by field; ``runtime_dtype``
 and ``p_dtype`` return torch dtypes. Each architecture file exports
 
-  FULL   the published configuration (phi3-medium-14b serves at full width
-         and depth on one H100)
+  FULL   the published configuration (phi3-medium-14b, mamba2-1.3b and
+         hymba-1.5b serve at full width and depth on one H100)
   SMOKE  a reduced same-family configuration (CPU tests)
 
 Only the ported architectures register. The reference's ``input_specs`` /
@@ -92,7 +92,7 @@ class ModelConfig:
 
 
 _REGISTRY: dict[str, ModuleType] = {}
-_PORTED = ("phi3_medium_14b", "gemma2_27b")
+_PORTED = ("phi3_medium_14b", "gemma2_27b", "mamba2_1_3b", "hymba_1_5b")
 
 
 def register(arch_id: str, module: ModuleType) -> None:

@@ -2,18 +2,21 @@
 path and of the multi-LoRA engine under ``torch.profiler``.
 
   python -m repro_torch.launch.profile_serve --arch phi3-medium-14b [--smoke]
-      [--steps 4] [--device cuda|cpu]
+      [--steps 4] [--prompt-len 512] [--device cuda|cpu]
 
-The shapes are those ``chip_smoke.py`` serves: the batched path prefills 8
-prompts of 512 tokens and profiles ``steps`` lockstep decode steps (flash
-attention); the engine admits one request per slot into 16 slots (prompts
-of 64-256 tokens, 16 adapters, each with its own modality mask) and
-profiles ``steps`` engine steps with every slot busy (the gathered
-projection). For each it prints the host wall per step (after a
-synchronize, profiler on), the card's busy time per step (the sum of its
-kernel, copy and memset times: one stream, so they do not overlap), the
-card's idle share, kernel launches per step and the kernels that take the
-most device time. On the CPU only the host side is traced.
+The shapes are those ``chip_smoke.py`` serves phi3-medium-14b at: the
+batched path prefills 8 prompts of ``--prompt-len`` (512) tokens and
+profiles ``steps`` lockstep decode steps (flash attention); the engine
+admits one request per slot into 16 slots (prompts of up to half as many
+tokens, 16 adapters, each with its own modality mask) and profiles
+``steps`` engine steps with every slot busy (the gathered projection;
+mamba2 has no fusion projection, so no engine). The recurrent families
+prefill by the token loop of decode steps. For each it prints the host
+wall per step (after a synchronize, profiler on), the card's busy time per
+step (the sum of its kernel, copy and memset times: one stream, so they do
+not overlap), the card's idle share, kernel launches per step and the
+kernels that take the most device time. On the CPU only the host side is
+traced.
 
 The device defaults to the CUDA card and raises without one.
 """
@@ -32,8 +35,7 @@ from repro_torch.launch import step_fns as SF
 from repro_torch.launch.serving_engine import ServingEngine
 from repro_torch.models import api
 
-BATCH, PROMPT_LEN = 8, 512
-SLOTS, N_ADAPTERS, ENGINE_PROMPT_LEN = 16, 16, 256
+BATCH, SLOTS, N_ADAPTERS = 8, 16, 16
 
 
 def profile_steps(label: str, step, n: int, dev: torch.device) -> dict:
@@ -124,6 +126,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced SMOKE config instead of FULL")
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=512,
+                    help="batched prompt length; the engine's longest "
+                    "prompt is half of it")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
@@ -132,14 +137,15 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = dataclasses.replace(mod.SMOKE if args.smoke else mod.FULL,
                               attn_impl="pallas")
     params = serve.init_params(cfg, 0, dev)
-    return {
-        "batched": profile_batched(cfg, params, batch=BATCH,
-                                   prompt_len=PROMPT_LEN, steps=args.steps,
-                                   dev=dev),
-        "engine": profile_engine(cfg, params, slots=SLOTS,
-                                 n_adapters=N_ADAPTERS,
-                                 prompt_len=ENGINE_PROMPT_LEN,
-                                 steps=args.steps, dev=dev)}
+    res = {"batched": profile_batched(cfg, params, batch=BATCH,
+                                      prompt_len=args.prompt_len,
+                                      steps=args.steps, dev=dev)}
+    if cfg.family != "ssm":
+        res["engine"] = profile_engine(cfg, params, slots=SLOTS,
+                                       n_adapters=N_ADAPTERS,
+                                       prompt_len=args.prompt_len // 2,
+                                       steps=args.steps, dev=dev)
+    return res
 
 
 if __name__ == "__main__":

@@ -3,26 +3,34 @@ continuous-batching multi-LoRA engine, for a ported LM architecture.
 
   python -m repro_torch.launch.serve --arch phi3-medium-14b [--smoke]
       [--engine] [--device cuda|cpu] [--attn-impl pallas|xla]
+  python -m repro_torch.launch.serve --arch mamba2-1.3b | hymba-1.5b ...
 
-``run_batched`` prefills B synthetic prompts in one chunked forward
-(``api.prefill_with_cache``) and decodes them in lockstep, every row at the
-same position. ``run_engine`` serves N personalized adapters through
+``run_batched`` prefills B synthetic prompts through
+``api.prefill_with_cache`` (one chunked forward for the attention families;
+the exact token loop of decode steps for mamba2 and hymba, as the reference
+does) and decodes them in lockstep, every row at the same position. The SSD
+kernel runs in the full-prompt forward, ``step_fns.make_prefill_step``.
+``run_engine`` serves N personalized adapters through
 ``launch/serving_engine.py``: requests with ragged prompts join and leave
 the decode batch mid-stream, each row decoding with its own adapter and
 modality mask through the gathered projection.
 
 In the port, ``attn_impl="pallas"`` and ``lora_impl="pallas"`` mean "the op
 in ``kernels/``": on a CUDA tensor it launches the CUDA kernel
-(``kernels/flash_attention``, ``kernels/mdlora``), on a CPU tensor it runs
-that op's plain version in ``ref.py``. "xla" means the plain PyTorch path
-(the chunked attention, the plain gathered projection). This launcher passes
-"pallas" for both by default; the reference's launcher leaves them at "xla"
-because its CPU dry-run cannot lower Pallas, and the configs keep the
-reference's "xla" default; ``--attn-impl xla`` selects the plain attention.
-Flash attention runs where positions are shared
-by the batch: ``run_batched``'s prefill and decode. The engine's rows sit at
-their own depths, so its attention is the plain chunked attention and its
-kernel is the gathered projection.
+(``kernels/flash_attention``, ``kernels/mdlora``, ``kernels/ssd``), on a CPU
+tensor it runs that op's plain version in ``ref.py``. "xla" means the plain
+PyTorch path (the chunked attention and SSD scan, the plain gathered
+projection). This launcher passes "pallas" for both by default; the
+reference's launcher leaves them at "xla" because its CPU dry-run cannot
+lower Pallas, and the configs keep the reference's "xla" default;
+``--attn-impl xla`` selects the plain versions. In the dense family flash
+attention runs where positions are shared by the batch: ``run_batched``'s
+prefill and decode (hymba's attention is the plain one, as in the
+reference).
+The engine's rows sit at their own depths, so its attention is the plain
+chunked attention and its kernel is the gathered projection (hymba: ``wq``,
+``wv`` and the fusion ``wo``; mamba2 has no fusion projection, so no
+engine).
 
 The device defaults to the CUDA card and raises without one; ``--device
 cpu`` runs everything with the plain versions.
@@ -42,7 +50,6 @@ from repro_torch.launch import step_fns as SF
 from repro_torch.launch.serving_engine import (AdapterRegistry, Request,
                                                ServingEngine)
 from repro_torch.models import api
-from repro_torch.models import transformer as TF
 
 # b of a trained adapter is nonzero; init's b = 0 would make every client's
 # adapter the base model, so the demo draws b at this scale
@@ -116,7 +123,7 @@ def build_registry(cfg: ModelConfig, n_adapters: int, seed: int,
     reg = AdapterRegistry(cfg, capacity=n_adapters, device=dev)
     n_blocks = len(reg.block_dims)
     for i in range(n_adapters):
-        lora = {"layers": TF.init_lora(gen, cfg, "cpu")}
+        lora = {"layers": api.init_lora(gen, cfg, "cpu")}
         for leaf in lora["layers"].values():
             leaf["b"].normal_(0.0, ADAPTER_B_STD, generator=gen)
         mm = (rng.random(n_blocks) < 0.8).astype(np.float32)

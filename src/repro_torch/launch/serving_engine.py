@@ -84,7 +84,7 @@ class AdapterRegistry:
                                     device=self.device),
                    "b": torch.zeros((n, capacity, r, dout), dtype=dt,
                                     device=self.device)}
-            for name, (din, dout) in TF.lora_shapes(cfg).items()}}
+            for name, (din, dout) in api.lora_shapes(cfg).items()}}
         self.block_dims = api.fusion_block_dims(cfg)
         self.fusion_masks = torch.ones((capacity, sum(self.block_dims)),
                                        device=self.device)
@@ -197,7 +197,8 @@ class ServingEngine:
             self.cfg, _clone(self._fresh_row), tokens,
             fusion_mask=self.registry.fusion_masks[aslot][None])
         # the fresh row overwrites the whole slot (pos = -1 past the
-        # prompt), so a recycled slot keeps nothing of its last occupant
+        # prompt; the conv and SSM states of a recurrent family too), so a
+        # recycled slot keeps nothing of its last occupant
         tree_map(lambda big, row: big[:, slot].copy_(row[:, 0]), self.caches,
                  small)
         first = int(_greedy(logits)[0])

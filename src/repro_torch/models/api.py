@@ -5,11 +5,12 @@
   init_caches(cfg, batch, max_len, ...)  -> decode caches
   decode_step(params, cfg, caches, token, pos) -> (logits, caches)
   prefill_with_cache(params, cfg, caches, tokens) -> (last logits, caches)
+  lora_shapes(cfg), init_lora(generator, cfg, device) -> the LoRA targets
 
 The transformer families dispatch to ``models/transformer.py`` (the dense
-family is ported; MoE, VLM and audio raise there). The ssm and hybrid
-families raise ``NotImplementedError`` (ROADMAP.md, port queue). Caches are
-written in place and returned.
+family is ported; MoE, VLM and audio raise there), ``ssm`` to
+``models/ssm.py`` (mamba2) and ``hybrid`` to ``models/hybrid.py`` (hymba).
+Caches are written in place and returned.
 """
 from __future__ import annotations
 
@@ -18,53 +19,61 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hybrid as HY
+from repro_torch.models import ssm as SM
 from repro_torch.models import transformer as TF
 from repro_torch.tree import leaves
 
 _TF_FAMILIES = ("dense", "moe", "vlm", "audio")
-_QUEUED = {"ssm": "kernel 6 (ssd_pallas) with models/ssm.py",
-           "hybrid": "hybrid.py (hymba) through the engine"}
+_RECURRENT = ("ssm", "hybrid")
 
 
-def _family(cfg: ModelConfig) -> None:
-    """Raise unless the family's model is ported."""
-    if cfg.family in _TF_FAMILIES:
-        return
-    if cfg.family in _QUEUED:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (ROADMAP.md, port "
-            f"queue: {_QUEUED[cfg.family]})")
+def _family(cfg: ModelConfig) -> str:
+    if cfg.family in _TF_FAMILIES or cfg.family in _RECURRENT:
+        return cfg.family
     raise ValueError(f"unknown family {cfg.family}")
 
 
 def init_model(generator: torch.Generator | None, cfg: ModelConfig,
                device: torch.device | str | None = None,
                with_lora: bool = True) -> dict:
-    _family(cfg)
-    return TF.init_lm(generator, cfg, device, with_lora)
-
-
-def forward(params: dict, cfg: ModelConfig, batch: dict) -> tuple:
-    _family(cfg)
-    logits, _, aux = TF.lm_forward(params, cfg, batch["tokens"],
-                                   patches=batch.get("patches"))
-    return logits, aux
+    init = {"ssm": SM.init_mamba_lm, "hybrid": HY.init_hybrid_lm}.get(
+        _family(cfg), TF.init_lm)
+    return init(generator, cfg, device, with_lora)
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, batch: dict) -> tuple:
     """Forward up to the final norm (pre-unembed); prefill unembeds only
-    the last position."""
-    _family(cfg)
+    the last position. For ssm and hybrid with ``cfg.attn_impl ==
+    "pallas"`` this is the call that runs the SSD kernel."""
+    family = _family(cfg)
+    if family == "ssm":
+        return SM.mamba_forward(params, cfg, batch["tokens"],
+                                skip_unembed=True)
+    if family == "hybrid":
+        return HY.hybrid_forward(params, cfg, batch["tokens"],
+                                 skip_unembed=True)
     return TF.lm_forward(params, cfg, batch["tokens"],
                          patches=batch.get("patches"), skip_unembed=True)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict) -> tuple:
+    h, _, aux = forward_hidden(params, cfg, batch)
+    return TF.unembed(params, cfg, h), aux
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 per_row_pos: bool = False,
                 device: torch.device | str | None = None) -> Any:
     """``per_row_pos`` gives every batch row its own cache position leaf so
-    rows can sit at different sequence depths (continuous batching)."""
-    _family(cfg)
+    rows can sit at different sequence depths (continuous batching); the
+    ssm family's state is positionless."""
+    family = _family(cfg)
+    if family == "ssm":
+        return SM.init_mamba_caches(cfg, batch, max_len, device=device)
+    if family == "hybrid":
+        return HY.init_hybrid_caches(cfg, batch, max_len,
+                                     per_row_pos=per_row_pos, device=device)
     return TF.init_kv_caches(cfg, batch, max_len, per_row_pos=per_row_pos,
                              device=device)
 
@@ -79,19 +88,47 @@ def decode_step(params: dict, cfg: ModelConfig, caches: Any,
     ``adapter_idx`` [B] selects per-row adapters from [A, ...]-stacked LoRA
     leaves; ``fusion_mask`` [B, fusion_dim] zeroes absent-modality blocks of
     the fusion projection input."""
-    _family(cfg)
-    return TF.lm_decode_step(params, cfg, caches, token, pos,
-                             adapter_idx=adapter_idx,
-                             fusion_mask=fusion_mask, lora_impl=lora_impl)
+    family = _family(cfg)
+    if family == "ssm":
+        if adapter_idx is not None or fusion_mask is not None:
+            raise ValueError("ssm family has no fusion projection; "
+                             "multi-adapter decode is not supported")
+        return SM.mamba_decode_step(params, cfg, caches, token, pos)
+    step = HY.hybrid_decode_step if family == "hybrid" else TF.lm_decode_step
+    return step(params, cfg, caches, token, pos, adapter_idx=adapter_idx,
+                fusion_mask=fusion_mask, lora_impl=lora_impl)
 
 
 def fusion_block_dims(cfg: ModelConfig) -> tuple[int, ...]:
-    """Modality-aligned column blocks of the fusion (``wo``) input axis:
-    one block per KV group (the concatenated-head axis is K-major after the
-    [B, S, K, G, hd] reshape), i.e. head-group granularity."""
-    _family(cfg)
+    """Modality-aligned column blocks of the fusion (``wo``) input axis.
+
+    hybrid: (attention features, SSD features), the RELIEF Eq. 1 layout.
+    Attention families: one block per KV group (the concatenated-head axis
+    is K-major after the [B, S, K, G, hd] reshape), i.e. head-group
+    granularity.
+    """
+    family = _family(cfg)
+    if family == "hybrid":
+        dm = HY.hybrid_dims(cfg)
+        return (dm["attn_out"], dm["d_inner"])
+    if family == "ssm":
+        raise ValueError("ssm has no fusion projection")
     g = cfg.n_heads // cfg.n_kv_heads
     return (g * cfg.head_dim,) * cfg.n_kv_heads
+
+
+def lora_shapes(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
+    """The family's LoRA targets -> (in, out) of the projection each
+    adapts; every LoRA tree is {target: {"a": [L, in, r], "b": [L, r,
+    out]}}."""
+    return {"ssm": SM.lora_shapes, "hybrid": HY.lora_shapes}.get(
+        _family(cfg), TF.lora_shapes)(cfg)
+
+
+def init_lora(generator: torch.Generator | None, cfg: ModelConfig,
+              device: torch.device | str | None = None) -> dict:
+    """A fresh adapter: ``params["lora"]["layers"]`` of the family."""
+    return TF.init_lora(generator, cfg, device, lora_shapes(cfg))
 
 
 def _min_ring(caches: Any) -> int:
@@ -107,19 +144,24 @@ def prefill_with_cache(params: dict, cfg: ModelConfig, caches: Any,
     """Prefill ``tokens`` [B, S] into fresh ``caches`` (written in place);
     -> (last-position logits [B, 1, V], caches).
 
-    One chunked forward over the whole prompt when every cache ring holds
-    it; a prompt longer than a sliding-window ring would overwrite slots
-    mid-forward, so it takes the exact per-token loop.
+    Attention families run one chunked forward over the whole prompt when
+    every cache ring holds it; a prompt longer than a sliding-window ring
+    would overwrite slots mid-forward, so it takes the exact per-token loop.
+    The recurrent families (ssm, hybrid) advance their state token by token,
+    as the reference does: the cache path is the recurrence there. The
+    fusion mask applies to hybrid only.
     """
-    _family(cfg)
+    family = _family(cfg)
     S = tokens.shape[1]
-    if S <= _min_ring(caches):
+    if family in _TF_FAMILIES and S <= _min_ring(caches):
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         h, caches, _ = TF.lm_forward(params, cfg, tokens, patches=patches,
                                      positions=positions, caches=caches,
                                      skip_unembed=True,
                                      fusion_mask=fusion_mask)
         return TF.unembed(params, cfg, h[:, -1:]), caches
+    if family == "ssm":
+        fusion_mask = None
     logits = None
     for t in range(S):
         logits, caches = decode_step(params, cfg, caches, tokens[:, t:t + 1],

@@ -76,18 +76,21 @@ def lora_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def init_lora(generator: torch.Generator | None, cfg: ModelConfig,
-              device: torch.device | str | None = None) -> dict:
-    """LoRA adapters for the attention projections of every layer, stacked
-    [L, ...]: y += (x @ a) @ b * (alpha / rank); a [in, r] ~ N(0, 1/in),
-    b [r, out] = 0. ``wo``'s a ([n_heads*head_dim, r]) is the fusion
+              device: torch.device | str | None = None,
+              shapes: dict[str, tuple[int, int]] | None = None) -> dict:
+    """LoRA adapters of every layer, stacked [L, ...]: y += (x @ a) @ b *
+    (alpha / rank); a [in, r] ~ N(0, 1/in), b [r, out] = 0. ``shapes``
+    (target -> (in, out)) defaults to the attention projections of
+    ``lora_shapes``; ``wo``'s a ([n_heads*head_dim, r]) is the fusion
     projection whose input concatenates the head groups -- the RELIEF block
     axis."""
     dev = runtime.resolve_device(device)
     dt, r, n = lora_dtype(cfg), cfg.lora_rank, cfg.n_layers
+    shapes = lora_shapes(cfg) if shapes is None else shapes
     return {name: {"a": L.normal(generator, (n, din, r), 1 / math.sqrt(din),
                                  dev, dt),
                    "b": torch.zeros((n, r, dout), dtype=dt, device=dev)}
-            for name, (din, dout) in lora_shapes(cfg).items()}
+            for name, (din, dout) in shapes.items()}
 
 
 def padded_vocab(cfg: ModelConfig) -> int:

@@ -1,5 +1,6 @@
 """The CUDA kernels (cohort aggregation, flash attention, gathered
-multi-LoRA) against their plain PyTorch versions, on the card. Marked
+multi-LoRA, the SSD scan) against their plain PyTorch versions, on the
+card. Marked
 ``cuda``: each test skips without a card, and the file imports no JAX so it
 runs on a machine that has only the port's dependencies:
 
@@ -16,6 +17,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.mdlora import ops as md_ops  # noqa: E402
 from repro_torch.kernels.mdlora import ref as md_ref  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -177,7 +181,7 @@ def test_flash_kernel_is_deterministic(dev):
 MD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
 
 
-def _md_inputs(B, D, F, r, A, dtype, dev, seed, blocks=2):
+def _md_inputs(B, D, F, r, A, dtype, dev, seed, blocks=2, dims=None):
     g = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     x = t(g.normal(size=(B, D)).astype(np.float32)).to(dtype)
@@ -185,8 +189,9 @@ def _md_inputs(B, D, F, r, A, dtype, dev, seed, blocks=2):
     a = t((g.normal(size=(A, D, r)) / np.sqrt(D)).astype(np.float32))
     b = t((0.05 * g.normal(size=(A, r, F))).astype(np.float32))
     idx = t(g.integers(0, A, B).astype(np.int32))
-    mm = (g.random((B, blocks)) < 0.7).astype(np.float32)
-    mask = md_ops.block_row_masks([D // blocks] * blocks, mm).to(dev)
+    dims = [D // blocks] * blocks if dims is None else dims
+    mm = (g.random((B, len(dims))) < 0.7).astype(np.float32)
+    mask = md_ops.block_row_masks(dims, mm).to(dev)
     return x, w0, a, b, idx, mask
 
 
@@ -212,6 +217,33 @@ def test_mdlora_kernel_matches_plain(dev, dtype, B, D, F, r, A, masked):
     atol, rtol = MD_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D,F,dims", [
+    (1600, 1600, None), (1600, 320, None),  # hymba wq, wv: no mask
+    (4800, 1600, [1600, 3200]),  # hymba's fusion wo: the block edge at
+    (4800, 1600, [1700, 3100]),  # 1600 or 1700 cuts a 256-wide chunk
+], ids=["wq", "wv", "wo", "wo_offset"])
+def test_mdlora_kernel_at_hymba_shapes(dev, dtype, D, F, dims):
+    x, w0, a, b, idx, mask = _md_inputs(16, D, F, 8, 16, dtype, dev, D + F,
+                                        dims=dims or [D])
+    mask = mask if dims else None
+    got = md_ops.mdlora_matmul_multi(x, w0, a, b, idx, mask, 2.0)
+    want = md_ref.mdlora_matmul_multi_ref(x, w0, a, b, idx, mask, 2.0)
+    atol, rtol = MD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if dims:  # an absent block contributes nothing, to the last column
+        cut = torch.zeros_like(x)
+        cut[:, :dims[0]] = x[:, :dims[0]]
+        one = torch.zeros_like(mask)
+        one[:, :dims[0]] = 1.0
+        torch.testing.assert_close(
+            md_ops.mdlora_matmul_multi(x, w0, a, b, idx, one, 2.0),
+            md_ops.mdlora_matmul_multi(cut, w0, a, b, idx, one, 2.0),
+            atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -256,3 +288,122 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         md_ops.mdlora_matmul_multi(x, w0.float(), a, b, idx, mask)
     with pytest.raises(ValueError, match="shape"):
         md_ops.mdlora_matmul_multi(x, w0, a, b, idx[:1].contiguous(), mask)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan
+# ---------------------------------------------------------------------------
+
+# |kernel - plain| <= atol + rtol |plain| + (SUM_RTOL + CUM_ULPS u C) S,
+# where S is the same scan over |x|, |B| and |C|, u = 2^-24 and C the
+# largest log-decay of a chunk (max |cum|). fp32: both sides sum over n, Q
+# and the chunks in another order, so their difference scales with S
+# (mamba2's heads: S ~ 400 where y has cancelled to ~0.5), and both take
+# exp(cum_i - cum_j) from running sums rounded in their own order, a
+# relative error of a few ulps of C per term; a dropped or doubled term
+# moves y by more than a thirtieth of S. bf16 x, B, C and y: the plain
+# version runs in fp32 on the same values, and the kernel's y is rounded
+# once to bf16 (2^-9 relative; the atol covers y near zero).
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2**-8)}
+SSD_SUM_RTOL, SSD_CUM_ULPS = 1e-6, 16
+
+
+def _ssd_plain(x, dt, A_log, Bm, Cm, chunk):
+    """-> ((y, final_state), the same over absolute values) in fp32, and
+    the tolerance's factor of S."""
+    f = lambda t: t.float()  # noqa: E731
+    b, s, h = dt.shape
+    C = (torch.exp(A_log) * dt).reshape(b, s // chunk, chunk, h).sum(2)
+    return (ssd_ref.ssd_ref(f(x), dt, A_log, f(Bm), f(Cm), chunk),
+            ssd_ref.ssd_ref(f(x).abs(), dt, A_log, f(Bm).abs(),
+                            f(Cm).abs(), chunk),
+            SSD_SUM_RTOL + SSD_CUM_ULPS * 2**-24 * C.max().item())
+
+
+def _assert_ssd_close(got, want, scale, sum_rtol, atol, rtol):
+    err = (got.float() - want).abs()
+    bound = atol + rtol * want.abs() + sum_rtol * scale
+    assert (err <= bound).all(), (
+        f"max abs err {err.max().item():.3e}, worst excess "
+        f"{(err - bound).max().item():.3e}")
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, dev, seed):
+    g = np.random.default_rng(seed)
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    x = t(g.normal(size=(b, s, h, p))).to(dtype)
+    dt = torch.nn.functional.softplus(t(g.normal(size=(b, s, h))))
+    A_log = t(g.normal(size=h))
+    Bm = t(g.normal(size=(b, s, n))).to(dtype)
+    Cm = t(g.normal(size=(b, s, n))).to(dtype)
+    return x, dt, A_log, Bm, Cm
+
+
+SSD_CASES = [  # b, s, h, p, n, chunk
+    (2, 64, 4, 16, 8, 16), (2, 128, 8, 8, 16, 32), (2, 32, 2, 32, 4, 32),
+    (2, 96, 3, 24, 8, 32),     # odd head count
+    (1, 30, 5, 6, 5, 10),      # nothing a multiple of 4
+    (2, 256, 50, 64, 16, 64),  # hymba FULL heads: h = 50, n = 16
+    (2, 256, 64, 64, 128, 64),  # mamba2 FULL heads
+    (1, 256, 4, 64, 128, 128),  # chunk 128 (the reference's default)
+    (3, 16, 2, 16, 16, 16),    # one chunk
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(dev, dtype, b, s, h, p, n, chunk):
+    x, dt, A_log, Bm, Cm = _ssd_inputs(b, s, h, p, n, dtype, dev,
+                                       b + s + h + p + n)
+    before = ssd_ops.LAUNCHES["ssd"]
+    y, fs = ssd_ops.ssd(x, dt, A_log, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd"] == before + 1
+    assert y.dtype == dtype and fs.dtype == torch.float32
+    (yw, fw), (ys, fsum), sum_rtol = _ssd_plain(x, dt, A_log, Bm, Cm, chunk)
+    _assert_ssd_close(y, yw, ys, sum_rtol, *SSD_TOL[dtype])
+    _assert_ssd_close(fs, fw, fsum, sum_rtol, *SSD_TOL[torch.float32])
+
+
+def test_ssd_kernel_matches_the_sequential_recurrence(dev):
+    x, dt, A_log, Bm, Cm = _ssd_inputs(1, 32, 2, 8, 4, torch.float32, dev, 0)
+    y, fs = ssd_ops.ssd(x, dt, A_log, Bm, Cm, 8)
+    state = torch.zeros((1, 2, 8, 4), device=dev)
+    for t in range(32):
+        yt, state = ssm.ssd_decode_step(state, x[:, t], dt[:, t], A_log,
+                                        Bm[:, t], Cm[:, t])
+        torch.testing.assert_close(y[:, t], yt, atol=1e-4, rtol=0)
+    torch.testing.assert_close(fs, state, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ssd_kernel_is_deterministic(dev, dtype):
+    args = _ssd_inputs(2, 512, 64, 64, 128, dtype, dev, 1)
+    (y1, f1), (y2, f2) = ssd_ops.ssd(*args, 64), ssd_ops.ssd(*args, 64)
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, dt, A_log, Bm, Cm = _ssd_inputs(1, 64, 2, 8, 4, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match="zero state"):
+        ssd_ops.ssd(x, dt, A_log, Bm, Cm, 16,
+                    initial_state=torch.zeros((1, 2, 8, 4), device=dev))
+    with pytest.raises(ValueError, match="not divisible"):
+        ssd_ops.ssd(x, dt, A_log, Bm, Cm, 24)
+    with pytest.raises(ValueError, match="is on"):
+        ssd_ops.ssd(x, dt.cpu(), A_log, Bm, Cm, 16)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd(x, dt, A_log, Bm.bfloat16(), Cm, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                    A_log, Bm, Cm, 16)
+    with pytest.raises(ValueError, match="at most"):
+        ssd_ops.ssd(*_ssd_inputs(1, 512, 1, 8, 4, torch.float32, dev, 0), 512)
+    before = ssd_ops.LAUNCHES["ssd"]
+    cpu = [t.cpu() for t in (x, dt, A_log, Bm, Cm)]
+    ssd_ops.ssd(*cpu, 16)
+    assert ssd_ops.LAUNCHES["ssd"] == before
