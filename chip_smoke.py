@@ -54,6 +54,22 @@ Phases, each printing its lines (and its wall time) before the last:
  13. recurrent check  mamba2 and hymba SMOKE in fp32: prefill-step logits on
               the card equal the CPU's; hymba engine tokens on the card equal
               the CPU's and the card's per-request baseline
+ 14. fused kernel  the fused block-LoRA projection (Backbone 2's fusion
+              layer) vs its plain version at the training path's shape (8
+              clients x 32 rows, 112 -> 128, r 8, the fleet's masks, W0
+              shared), an evaluation batch, a ragged shape and 1024 clients;
+              two calls bitwise equal; the autograd Function's vmap(grad) vs
+              the plain expression's; error, device time, eager call time,
+              plain time, bound and cuBLAS's base product alone
+ 15. sync     the synchronous RELIEF round (FedRun) on full-width PAMAP2
+              Backbone 2, paper fleet (3,3,2), through
+              ``train_relief_har.build``: three rounds of relief and three of
+              fedavg, launch counts zeroed just before each and read just
+              after (rounds x E x steps + the evaluation's batches); then
+              one more relief round under the profiler (device busy time,
+              idle share, launches, top kernels)
+ 16. sync check  one PAMAP2_B2_SMALL relief round on the card against the
+              same round on the CPU, and PAMAP2_B2 FULL logits card vs CPU
 Each path's launch counts are zeroed just before it and read just after.
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero,
@@ -95,6 +111,7 @@ KERNELS = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
     "mdlora_matmul_multi": "src/repro/kernels/mdlora/kernel.py:70",
     "ssd": "src/repro/kernels/ssd/kernel.py:65",
+    "mdlora_matmul": "src/repro/kernels/mdlora/kernel.py:117",
 }
 PATH_SHAPE = (4, 112, 128)  # K=4 buffered clients x fusion_w0 [112, 128]
 CASES = [("path", PATH_SHAPE, False), ("ragged", (9, 100, 1), False),
@@ -1009,6 +1026,256 @@ def recurrent_check(torch, serve, serving_engine, step_fns, api, kops,
             fail("hymba engine check: tokens differ (card vs CPU or naive)")
 
 
+# -- phase 14 ---------------------------------------------------------------
+
+# the fused projection at the sync path's shapes: PAMAP2_B2's fusion input
+# D = 32+32+32+16 = 112 -> d_fused 128, r 8, scale 16/8
+PAMAP2_BLOCKS = [32, 32, 32, 16]
+FUSED_CASES = [  # label, K, T, D, F, r, shared operands, bf16?
+    ("path", 8, 32, 112, 128, 8, ("w0",), False),
+    ("path bf16", 8, 32, 112, 128, 8, ("w0",), True),
+    ("eval", None, 256, 112, 128, 8, (), False),
+    ("ragged", 3, 37, 100, 70, 5, ("w0",), False),
+    ("1024 clients", 1024, 32, 112, 128, 8, ("w0",), False),
+]
+# |kernel - plain| <= atol + rtol |plain|: fp32 sums over D = 112 in
+# another order; bf16 y is rounded once (2^-8 of its value)
+FUSED_TOL = {False: (1e-4, 1e-4), True: (2e-2, 2**-8)}
+
+
+def _fused_inputs(torch, md_ops, K, T, D, F, r, share, bf16, seed):
+    """x, W0, a, b, row mask as the path gives them: W0 [D, F] shared,
+    per-client a/b and row masks from the paper fleet's modality masks
+    (``K`` None: one evaluation batch, every operand unbatched)."""
+    from repro_torch.sim import make_fleet
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    lead = () if K is None else (K,)
+    x = torch.randn(lead + (T, D), **kw).to(dt)
+    w0 = (torch.randn((D, F), **kw) / math.sqrt(D)).to(dt)
+    a = (torch.randn(lead + (D, r), **kw) / math.sqrt(D)).to(dt)
+    b = (torch.randn(lead + (r, F), **kw) * 0.05).to(dt)
+    blocks = PAMAP2_BLOCKS if D == 112 else [D - 3 * (D // 4)] + [D // 4] * 3
+    mm = torch.as_tensor(make_fleet(3, 3, 2, M=4).modality_mask,
+                         dtype=torch.float32, device="cuda")
+    if K is None:
+        mm = torch.ones((1, 4), device="cuda")
+    mm = mm[torch.arange(K or 1, device="cuda") % mm.shape[0]]
+    mask = md_ops.block_row_masks(blocks, mm).contiguous()
+    if K is None:
+        mask = mask[0]
+    return x, w0, a, b, mask
+
+
+def _fused_work(K, T, D, F, r, share, es) -> tuple[int, int]:
+    """(bytes, flops): each operand read once (a shared one once in all),
+    y written once; the base product, the bottleneck, u @ b, the mask and
+    the scaled sum."""
+    k = K or 1
+    n = lambda name: 1 if (K is None or name in share) else k  # noqa: E731
+    nbytes = (k * T * D + n("w0") * D * F + n("a") * D * r + n("b") * r * F
+              + k * T * F) * es + 4 * n("mask") * D
+    flops = k * T * (2 * D * F + 2 * D * r + 2 * r * F + D + 2 * F)
+    return nbytes, flops
+
+
+def check_fused(torch, md_ops, md_ref, fused_block_lora) -> dict:
+    out = {}
+    for label, K, T, D, F, r, share, bf16 in FUSED_CASES:
+        x, w0, a, b, mask = _fused_inputs(torch, md_ops, K, T, D, F, r,
+                                          share, bf16, T + D + F + r)
+        got = md_ops.mdlora_matmul(x, w0, a, b, mask, 2.0)
+        again = md_ops.mdlora_matmul(x, w0, a, b, mask, 2.0)
+        want = md_ref.mdlora_matmul_ref(x, w0, a, b, mask, 2.0)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"mdlora_matmul {label}: two calls differ")
+        err = (got.float() - want.float()).abs()
+        atol, rtol = FUSED_TOL[bf16]
+        if not torch.isfinite(got).all() or (
+                err > atol + rtol * want.float().abs()).any():
+            fail(f"mdlora_matmul {label}: max abs err {err.max().item():.3e}"
+                 f" exceeds {atol} + {rtol:.4g}*|plain|")
+        sets = _copies(torch, (x, w0, a, b, mask))
+        kern = _rotating(sets, lambda x, w0, a, b, m:
+                         md_ops.mdlora_matmul(x, w0, a, b, m, 2.0))
+        plain = _rotating(sets, lambda x, w0, a, b, m:
+                          md_ref.mdlora_matmul_ref(x, w0, a, b, m, 2.0))
+        xm_sets = [((x * m.unsqueeze(-2)).to(x.dtype), w0)
+                   for x, w0, _, _, m in sets]
+        base = _rotating(xm_sets, torch.matmul)
+        iters = 50 if K == 1024 else 200
+        ms, call_ms = time_ms(torch, kern, iters)
+        plain_ms, plain_call = time_ms(torch, plain, iters)
+        base_ms, _ = time_ms(torch, base, iters)
+        nbytes, flops = _fused_work(K, T, D, F, r, share, x.element_size())
+        b_ms, by = _bound(nbytes, flops, _flops_peak(torch, x))
+        say(f"[fused] {label} K={K} T={T} D={D} F={F} r={r} shared "
+            f"{'/'.join(share) or 'none'} {'bf16' if bf16 else 'fp32'}: max "
+            f"abs err {err.max().item():.2e} (atol {atol} + {rtol:.4g}"
+            f"*|plain|), two calls bitwise equal | device "
+            f"{ms * 1e3:.2f} us/call (graph), eager call {call_ms * 1e3:.2f}"
+            f" us, plain {plain_ms * 1e3:.2f} us (eager "
+            f"{plain_call * 1e3:.2f} us), cuBLAS base product (x*m)@W0 alone"
+            f" {base_ms * 1e3:.2f} us, library n/a | bound "
+            f"{b_ms * 1e3:.3f} us ({by}: {nbytes / 1e6:.3f} MB, "
+            f"{flops / 1e6:.2f} MFLOP) = {b_ms / ms:.1%}")
+        out[label] = dict(max_abs_err=err.max().item(), ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                          library_ms=None)
+        del sets, xm_sets, kern, plain, base
+    # backward: the autograd Function's vmap(grad) vs the plain expression's
+    x, w0, a, b, mask = _fused_inputs(torch, md_ops, 8, 32, 112, 128, 8,
+                                      ("w0",), False, 1)
+
+    def grads(fn):
+        def loss(a_, b_, x_, m_):
+            return torch.tanh(fn(x_, w0, a_, b_, m_, 2.0)).square().sum()
+        return torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
+            a, b, x, mask)
+
+    got, want = grads(fused_block_lora), grads(md_ref.mdlora_matmul_ref)
+    torch.cuda.synchronize()
+    errs = [(n, (g - w).abs().max().item())
+            for n, g, w in zip(("da", "db", "dx"), got, want)]
+    zero = bool((got[0][mask == 0] == 0).all())
+    say("[fused] backward at the path shape, vmap(grad) over 8 clients: "
+        "Function (kernel forward) vs plain expression max abs err "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs)
+        + f" (atol 1e-4); rows of da for absent blocks exactly 0: {zero}")
+    if any(e > 1e-4 for _, e in errs) or not zero:
+        fail("the fused projection's gradient disagrees with the plain "
+             "expression's")
+    return out
+
+
+# -- phase 15 ---------------------------------------------------------------
+
+SYNC_ROUNDS = 3
+
+
+def _time_rounds(torch, run) -> list:
+    """Wrap ``run.round`` with a synchronized host timer per round."""
+    walls, inner = [], run.round
+
+    def timed(dataset):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rec = inner(dataset)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        return rec
+
+    run.round = timed
+    return walls
+
+
+def sync_path(torch, md_ops, train_relief_har, profile_serve) -> int:
+    # cold start (cuBLAS handles, first vmap traces) outside the window
+    run, ds = train_relief_har.build(device="cuda")
+    t0 = time.perf_counter()
+    run.round(ds)
+    run.evaluate(ds)
+    torch.cuda.synchronize()
+    say(f"[sync] cold start: one round and one evaluation "
+        f"{time.perf_counter() - t0:.2f}s host wall")
+    total = 0
+    for strategy in ("relief", "fedavg"):
+        run, ds = train_relief_har.build(strategy=strategy, device="cuda")
+        walls = _time_rounds(torch, run)
+        fed = run.fed
+        n_test = sum(len(y) for y in ds.test_y)
+        want = SYNC_ROUNDS * fed.local_epochs * fed.steps_per_epoch \
+            + -(-n_test // 256)
+        md_ops.reset_launches()
+        hist = run.run(ds, rounds=SYNC_ROUNDS)
+        torch.cuda.synchronize()
+        n = dict(md_ops.LAUNCHES)
+        say(f"[sync] {strategy}: kernel launches {n} (expected mdlora_matmul "
+            f"{want} = {SYNC_ROUNDS} rounds x {fed.local_epochs} epochs x "
+            f"{fed.steps_per_epoch} steps, one batched call for the 8 "
+            f"clients, + {-(-n_test // 256)} evaluation batches of "
+            f"{n_test} windows)")
+        if n["mdlora_matmul"] != want or n["mdlora_matmul_multi"]:
+            fail(f"sync {strategy} did not launch the fused kernel as its "
+                 "path requires")
+        total += n["mdlora_matmul"]
+        if not all(math.isfinite(v) for v in hist["loss"]) or not \
+                0.0 <= hist["f1"][-1] <= 1.0:
+            fail(f"sync {strategy}: loss {hist['loss']}, F1 {hist['f1']}")
+        say(f"[sync] {strategy} on PAMAP2_B2 FULL (G={run.task.layout.G} "
+            f"groups, fusion a {tuple(run.state.trainable['lora']['fusion']['a'].shape)}"
+            f"), fleet N={run.fleet.N}, dropout {fed.dropout_prob}: host wall"
+            f" per round " + ", ".join(f"{w:.3f}" for w in walls) + " s "
+            f"(after synchronize); simulated round time "
+            + ", ".join(f"{v:.4f}" for v in hist["round_time_s"])
+            + " s, energy " + ", ".join(f"{v:.2f}" for v in hist["energy_j"])
+            + " J, upload " + ", ".join(f"{v:.4f}" for v in hist["upload_mb"])
+            + " MB, selected " + ", ".join(
+                f"{v:.3f}" for v in hist["selected_frac"])
+            + f"; losses {[round(v, 4) for v in hist['loss']]}, macro-F1 "
+            f"{hist['f1'][-1]:.4f} after {SYNC_ROUNDS} rounds")
+        if strategy == "relief":  # outside the counted window
+            profile_serve.profile_steps("sync relief round (20 local steps)",
+                                        lambda: run.round(ds), 1,
+                                        torch.device("cuda"))
+    return total
+
+
+# -- phase 16 ---------------------------------------------------------------
+
+
+def sync_check(torch, md_ops, train_relief_har, tree_map) -> None:
+    """One PAMAP2_B2_SMALL relief round card vs CPU (same seed and weights),
+    then PAMAP2_B2 FULL logits card vs CPU."""
+    from repro_torch.tree import leaves_with_path, map_with_path
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        run, ds = train_relief_har.build(small=True, device=dev)
+        md_ops.reset_launches()
+        rec = run.round(ds)
+        out[dev] = (rec["loss"], run.state.dbar.copy(),
+                    {k: v.cpu() for k, v in
+                     leaves_with_path(run.state.trainable)},
+                    md_ops.LAUNCHES["mdlora_matmul"])
+    (lc, dc, tc, nc), (lp, dp, tp, _) = out["cuda"], out["cpu"]
+    err = max((tc[k] - tp[k]).abs().max().item() for k in tp)
+    derr = float(abs(dc - dp).max() / abs(dp).max())
+    say(f"[check] PAMAP2_B2_SMALL relief round card vs CPU: trainable max "
+        f"abs err {err:.2e} (atol 1e-4), dbar max rel err {derr:.2e} (rtol "
+        f"1e-4), loss {lc:.6f} vs {lp:.6f}; card launches mdlora_matmul {nc}")
+    if nc == 0 or err > 1e-4 or derr > 1e-4 or abs(lc - lp) > 1e-4 * abs(lp):
+        fail("the sync round on the card disagrees with the CPU's")
+    from repro_torch.configs.relief_har import PAMAP2_B2
+    from repro_torch.core.tasks import MMTask
+    from repro_torch.models.multimodal import mm_forward
+
+    task, tr = MMTask.create(PAMAP2_B2, torch.Generator().manual_seed(0),
+                             device="cpu")
+    g = torch.Generator().manual_seed(1)
+    tr = map_with_path(  # LoRA b is 0 at init: give every adapter a term
+        lambda p, t: t + 0.05 * torch.randn(t.shape, generator=g)
+        if p.endswith("['b']") else t, tr)
+    x = torch.randn((64, PAMAP2_B2.window, PAMAP2_B2.total_channels),
+                    generator=g)
+    mm = torch.tensor([[1.0, 1.0, 0.0, 1.0]])
+    cpu = task.params(tr)
+    gpu = tree_map(lambda t: t.to("cuda"), cpu)
+    md_ops.reset_launches()
+    lg = mm_forward(gpu, PAMAP2_B2, x.to("cuda"), mm.to("cuda")).cpu()
+    n = md_ops.LAUNCHES["mdlora_matmul"]
+    lc_ = mm_forward(cpu, PAMAP2_B2, x, mm)
+    err = (lg - lc_).abs().max().item()
+    say(f"[check] PAMAP2_B2 FULL logits (64 windows, mag absent) card vs "
+        f"CPU: max abs err {err:.2e} (atol {CHECK_ATOL}); card launches "
+        f"mdlora_matmul {n}")
+    if n != 1 or err > CHECK_ATOL:
+        fail("PAMAP2_B2 FULL logits on the card differ from the CPU's")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1025,10 +1292,12 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.mdlora import ops as md_ops
     from repro_torch.kernels.mdlora import ref as md_ref
+    from repro_torch.kernels.mdlora.autograd import fused_block_lora
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
-    from repro_torch.launch import (serve, serving_engine, step_fns,
-                                    train_async_har)
+    from repro_torch.launch import (profile_serve, serve, serving_engine,
+                                    step_fns, train_async_har,
+                                    train_relief_har)
     from repro_torch.models import api, ssm
     from repro_torch.tree import tree_map
 
@@ -1044,7 +1313,8 @@ def main() -> None:
                "cohort_agg_divergence_quant": ops.SOURCE,
                "flash_attention": fa_ops.SOURCE,
                "mdlora_matmul_multi": md_ops.SOURCE,
-               "ssd": ssd_ops.SOURCE}
+               "ssd": ssd_ops.SOURCE,
+               "mdlora_matmul": md_ops.FUSED_SOURCE}
     phase("build", build_kernels, runtime, sorted(set(sources.values())))
     results = phase("kernels", check_kernels, torch, ops, ref)
     launches = phase("main", main_path, torch, ops, train_async_har, 12)
@@ -1090,6 +1360,12 @@ def main() -> None:
         torch.cuda.empty_cache()
     phase("recurrent check", recurrent_check, torch, serve, serving_engine,
           step_fns, api, kops, tree_map, get_arch)
+    results["mdlora_matmul"] = phase("fused kernel", check_fused, torch,
+                                     md_ops, md_ref, fused_block_lora)["path"]
+    launches["mdlora_matmul"] = phase("sync", sync_path, torch, md_ops,
+                                      train_relief_har, profile_serve)
+    phase("sync check", sync_check, torch, md_ops, train_relief_har,
+          tree_map)
     lines = []
     for name, replaces in KERNELS.items():
         lines.append(dict(

@@ -1,8 +1,14 @@
-"""Server-side aggregation (paper Eq. 3-5) for the asynchronous runtime.
+"""Server-side aggregation (paper Eq. 3-5).
 
 * ``cohort_weights``      -- RELIEF's [N, G] combine weights: each group is
   averaged only over the clients that trained it; the shared fusion B uses
   normalized modality-count weighting (Eq. 4).
+* ``fedavg_weights``      -- naive FedAvg over all N participants, the
+  paper's interference-prone baseline.
+* ``aggregate``           -- the synchronous round's Eq. 3 step through
+  ``mdlora.weighted_combine`` (plain reductions).
+* ``lemma1_decomposition`` -- Lemma 1's bias^2 / variance / interference
+  split of one fusion block's FedAvg error.
 * ``staleness_discounts`` -- FedBuff's polynomial 1/(1+s)^a.
 * ``CohortAggBuffer``     -- streaming Eq. 3 aggregate + Eq. 5 divergence
   statistics over a flushed cohort; the row-blocked fusion leaf goes through
@@ -54,6 +60,52 @@ def cohort_weights(layout: mdlora.GroupLayout, trained: torch.Tensor,
     return torch.where(denom > 0, num / denom.clamp(min=1e-12), 0.0)
 
 
+def fedavg_weights(n_clients: int, G: int,
+                   participating: torch.Tensor | None = None,
+                   device: torch.device | str | None = None) -> torch.Tensor:
+    """Naive FedAvg: every participant weighted 1/N_part for every group."""
+    if participating is None:
+        participating = torch.ones(n_clients, device=device)
+    p = participating.float()
+    return (p / p.sum().clamp(min=1.0))[:, None].expand(n_clients, G)
+
+
+def aggregate(layout: mdlora.GroupLayout, global_trainable: Any,
+              deltas: Any, W: torch.Tensor, server_lr: float = 1.0) -> Any:
+    """theta^{r+1} = theta^r + server_lr * sum_n W[n,g] * delta_n (Eq. 3)."""
+    agg = mdlora.weighted_combine(layout, deltas, W)
+    return tree_map(lambda t, d: (t.float() + server_lr * d).to(t.dtype),
+                    global_trainable, agg)
+
+
+def lemma1_decomposition(block_deltas: torch.Tensor,
+                         cohort: torch.Tensor) -> dict:
+    """Empirical Lemma 1 for one fusion block.
+
+    block_deltas: [N, d, r] per-client updates to one block A_m; cohort:
+    [N] bool -- C_m (possession). -> the scaling / interference /
+    intra-cohort terms, the exact FedAvg error and their bound (Eq. 12-13).
+    """
+    c = cohort.float()
+    x = block_deltas.float()
+    N = x.shape[0]
+    nC = c.sum()
+    g_bar = torch.einsum("n,n...->...", c / nC.clamp(min=1.0), x)
+    g_hat = x.mean(0)  # FedAvg over all N
+    eps_hat = torch.einsum("n,n...->...",
+                           (1 - c) / (N - nC).clamp(min=1.0), x)
+    err = (g_hat - g_bar).square().sum()
+    scaling = (1 - nC / N) ** 2 * g_bar.square().sum()
+    interference = ((N - nC) / N) ** 2 * eps_hat.square().sum()
+    intra = torch.einsum("n,n->", c / nC.clamp(min=1.0),
+                         (x - g_bar).square().sum(
+                             dim=tuple(range(1, x.dim()))))
+    return {"error": err, "scaling": scaling, "interference": interference,
+            "intra_cohort": intra,
+            "bound": 2 * scaling + 2 * interference
+            + intra / nC.clamp(min=1.0)}
+
+
 def staleness_discounts(staleness: torch.Tensor,
                         exponent: float) -> torch.Tensor:
     """FedBuff-style polynomial staleness discount 1/(1+s)^a. s is measured
@@ -89,6 +141,10 @@ class CohortAggBuffer:
         if robust != "mean":
             raise NotImplementedError(
                 f"robust={robust!r}: only the weighted mean is ported")
+        if layout.leaf_axis0_groups:
+            raise NotImplementedError(
+                "layer-stacked groups (Backbone 2) are not ported to the "
+                "streaming buffer yet")
         self.layout = layout
         self._proto = proto
         self.reset()

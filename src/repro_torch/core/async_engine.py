@@ -16,10 +16,11 @@ cohort aggregation:
     cohort-agg kernel on the fusion leaf: the fp32 kernel, or with
     ``uplink_codec="int8"`` the quantized-ingest kernel.
 
-Ported: the heap runtime ``AsyncFedRun`` with both uplink codecs (client-side
-int8 error feedback included). Not ported yet, and refused by
-``_check_strategy``: fault injection, time-varying modality schedules,
-selective upload, robust reducers; the vectorized runtime waits as well.
+Ported: the heap runtime ``AsyncFedRun`` on Backbone 1 with both uplink
+codecs (client-side int8 error feedback included). Not ported yet, and
+refused by ``_check_strategy`` or the buffer: fault injection, time-varying
+modality schedules, selective upload, robust reducers, HeLoRA rank caps,
+Backbone 2's layer-stacked groups; the vectorized runtime waits as well.
 """
 from __future__ import annotations
 
@@ -32,10 +33,10 @@ import torch
 from repro_torch import dist
 from repro_torch.core import aggregation as AG
 from repro_torch.core import mdlora
-from repro_torch.core.engine import (AllocPlan, FedConfig, _rank_gates,
-                                     allocate, allocate_rows,
-                                     draw_client_batches, make_local_update,
-                                     plan_allocation)
+from repro_torch.core.engine import (AllocPlan, FedConfig, allocate,
+                                     allocate_rows, draw_client_batches,
+                                     make_local_update, plan_allocation,
+                                     simulated_flops)
 from repro_torch.core.strategies import AsyncStrategy
 from repro_torch.core.tasks import MMTask
 from repro_torch.sim import FleetConfig
@@ -89,6 +90,7 @@ def _check_strategy(strategy: AsyncStrategy, fed: AsyncFedConfig) -> None:
         raise ValueError(f"uplink_codec must be one of {UPLINK_CODECS}, "
                          f"got {fed.uplink_codec!r}")
     for what, unported in (("robust reducers", strategy.robust != "mean"),
+                           ("HeLoRA rank caps", bool(strategy.rank_caps)),
                            ("selective upload", strategy.selective),
                            ("fault injection", fed.faults is not None),
                            ("modality schedules",
@@ -253,7 +255,6 @@ class AsyncFedRun(_ServerFlushMixin):
     def create(cls, task: MMTask, trainable0: Any, strategy: AsyncStrategy,
                fleet: FleetConfig, fed: AsyncFedConfig) -> AsyncFedRun:
         _check_strategy(strategy, fed)
-        _rank_gates(strategy)
         state = _make_state(task.layout.G, trainable0, fed.seed)
         trace = AsyncTrace()
         trace.init_fleet(fleet.N)
@@ -294,15 +295,7 @@ class AsyncFedRun(_ServerFlushMixin):
         deltas, losses = self.local_update(start, batches, mmasks, gates,
                                            fed.lr)
 
-        examples = steps * fed.batch_size
-        if fed.sim_mode == "flop_proportional":
-            k_count = np.asarray(S, np.float64).sum(1)
-            trained_fl = k_count * float(np.mean(layout.flops)) * examples * 3.0
-            fixed_fl = np.zeros(K)
-        else:  # fwd_aware
-            trained_fl = (np.asarray(S, np.float64) @ layout.flops
-                          ) * examples * 2.0
-            fixed_fl = np.full(K, task.forward_flops_per_example() * examples)
+        trained_fl, fixed_fl = simulated_flops(task, fed, S)
         upload = ((np.asarray(S, np.float64) @ layout.sizes)
                   * self._uplink_bytes_per_param)
         dur, t_comp, t_comm = completion_times(

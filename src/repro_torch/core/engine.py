@@ -1,11 +1,20 @@
-"""The pieces of the RELIEF round engine (paper Algorithm 1) that the
-asynchronous runtime runs: client local training, batch draws and
-divergence-guided elastic allocation (Eq. 7).
+"""The RELIEF round engine (paper Algorithm 1) and its baselines.
+
+One round of ``FedRun`` = (1) server allocation: EMA divergence -> Eq. 7
+budgets -> top-k group selection; (2) parallel local training: clients run
+E epochs with gradients gated to their assigned groups; (3) server
+aggregation: cohort-wise masked means (Eq. 3-4) + divergence update (Eq.
+5-6). Client participation is a per-round mask, so any dropout pattern
+aggregates well (an empty cohort freezes its block). The asynchronous
+runtime (``async_engine.py``) reuses the local update, the batch draws and
+the allocation.
 
 Local training is ``torch.func.vmap(torch.func.grad_and_value(loss))`` over
 the client axis, with a Python loop over the E x steps Adam steps; the
-trainable tree carries K stacked copies. The synchronous ``FedRun`` is not
-ported yet.
+trainable tree carries N stacked copies. Every numpy rng call of the
+reference's round is made in the same order (participation, dropout,
+allocation, batch draws), so a round here and a round there draw the same
+clients, gates and batches.
 """
 from __future__ import annotations
 
@@ -15,14 +24,16 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import aggregation as AG
 from repro_torch.core import allocation as AL
+from repro_torch.core import divergence as DV
 from repro_torch.core import mdlora
 from repro_torch.core.strategies import Strategy
 from repro_torch.core.tasks import MMTask
 from repro_torch.optim import adam_init, adam_update
 from repro_torch.sim import FleetConfig
 from repro_torch.sim import timing as T
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, map_with_path, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,10 +45,12 @@ class FedConfig:
     lr: float = 1e-3
     gamma: float = 0.9  # EMA coefficient (Eq. 6)
     server_lr: float = 1.0
+    participation: float = 1.0
     t_overhead: float = 0.05
     utilization: float = 0.3
     eval_every: int = 5
     seed: int = 0
+    dropout_prob: float = 0.0  # random client failures (fault injection)
     # timing model: "flop_proportional" = the paper's Sec. VI-A3 simulator
     # (compute ~ trained-group FLOPs only); "fwd_aware" = the Sec. VII model
     # charging the fixed full-model forward to everyone.
@@ -49,14 +62,25 @@ class FedConfig:
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class FedState:
+    round: int
+    trainable: Any  # global trainable tree
+    client_trainable: Any  # [N, ...] stacked (personalized leaves live here)
+    dbar: np.ndarray  # [G] EMA divergence
+    mag_ema: np.ndarray  # [G] update-magnitude EMA (FedEL-like alloc)
+    rng: np.random.Generator
+
+
 def make_local_update(task: MMTask, fed: FedConfig, prox_mu: float):
-    """-> local_update(start, batches, mmasks, gates, lr) ->
-    (deltas [K, ...] tree, mean losses [K]).
+    """-> local_update(start, batches, mmasks, gates, lr, rank_gate=None)
+    -> (deltas [K, ...] tree, mean losses [K]).
 
     start: [K, ...] stacked trainable; batches: {"x": [K, steps, B, T, C],
-    "y": [K, steps, B]}; mmasks: [K, M]; gates: [K, G]. Gradients and the
-    returned delta are gated to each client's selected groups, as in the
-    reference."""
+    "y": [K, steps, B]}; mmasks: [K, M]; gates: [K, G]; rank_gate: a
+    trainable-shaped tree of [K, ...] multiplicative masks (HeLoRA rank
+    caps), None for all ones. Gradients and the returned delta are gated to
+    each client's selected groups (and ranks), as in the reference."""
     layout = task.layout
 
     def loss_one(tr, x, y, mmask):
@@ -64,7 +88,7 @@ def make_local_update(task: MMTask, fed: FedConfig, prox_mu: float):
 
     grad_fn = torch.func.vmap(torch.func.grad_and_value(loss_one))
 
-    def local_update(start, batches, mmasks, gates, lr):
+    def local_update(start, batches, mmasks, gates, lr, rank_gate=None):
         tr, opt = start, adam_init(start)
         losses = []
         for s in range(batches["x"].shape[1]):
@@ -74,10 +98,14 @@ def make_local_update(task: MMTask, fed: FedConfig, prox_mu: float):
                 grads = tree_map(lambda g, t, t0: g + prox_mu * (t - t0),
                                  grads, tr, start)
             grads = mdlora.group_gate_tree(layout, grads, gates)
+            if rank_gate is not None:
+                grads = tree_map(torch.mul, grads, rank_gate)
             tr, opt = adam_update(tr, grads, opt, lr)
             losses.append(loss)
         delta = tree_map(lambda a, b: a.float() - b.float(), tr, start)
         delta = mdlora.group_gate_tree(layout, delta, gates)
+        if rank_gate is not None:
+            delta = tree_map(torch.mul, delta, rank_gate)
         return delta, torch.stack(losses, 1).mean(1)
 
     return local_update
@@ -202,9 +230,287 @@ def allocate(strategy: Strategy, state: Any, task: MMTask,
     return allocate_rows(plan, strategy, state, np.arange(fleet.N)), plan.k
 
 
-def _rank_gates(strategy: Strategy) -> None:
-    """HeLoRA rank gates. Without ``rank_caps`` every gate is one, and the
-    local update leaves the multiplication out; capped ranks are not ported
-    yet and raise."""
-    if strategy.rank_caps:
-        raise NotImplementedError("rank_caps (HeLoRA) are not ported yet")
+def simulated_flops(task: MMTask, fed: FedConfig,
+                    S: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(trained, fixed) FLOPs of each client's local work, for the timing
+    model. ``flop_proportional``: the paper's Sec. VI-A3 simulator (the
+    profiled mean per-group cost, compute proportional to the trained groups
+    only); ``fwd_aware``: Sec. VII (per-group FLOPs for the maskable
+    backward, the full-model forward a fixed cost)."""
+    examples = fed.local_epochs * fed.steps_per_epoch * fed.batch_size
+    S = np.asarray(S, np.float64)
+    if fed.sim_mode == "flop_proportional":
+        trained = S.sum(1) * float(np.mean(task.layout.flops)) * examples * 3.0
+        return trained, np.zeros(len(S))
+    return ((S @ task.layout.flops) * examples * 2.0,
+            np.full(len(S), task.forward_flops_per_example() * examples))
+
+
+# ---------------------------------------------------------------------------
+# personalization helpers
+# ---------------------------------------------------------------------------
+
+
+def _personal_leaf_mask(proto: Any, strategy: Strategy) -> Any:
+    """Tree of bool: True where the leaf stays local (never aggregated)."""
+    def is_personal(p: str, _leaf) -> bool:
+        if strategy.share_only:
+            return not any(s in p for s in strategy.share_only)
+        return any(s in p for s in strategy.personal)
+    return map_with_path(is_personal, proto)
+
+
+def _clusters(fleet: FleetConfig) -> np.ndarray:
+    """[N] cluster id by identical modality sets (FedLEASE-like)."""
+    keys = [tuple(row) for row in fleet.modality_mask.astype(int)]
+    uniq = {k: i for i, k in enumerate(dict.fromkeys(keys))}
+    return np.array([uniq[k] for k in keys], np.int32)
+
+
+def _rank_gates(proto: Any, strategy: Strategy, fleet: FleetConfig) -> Any:
+    """HeLoRA: [N]-stacked multiplicative masks zeroing the LoRA rank tails
+    of slower devices (rank fractions ``rank_caps`` by compute tier). None
+    without ``rank_caps``: every gate would be one, and the local update
+    leaves the multiplication out."""
+    if not strategy.rank_caps:
+        return None
+    N = fleet.N
+    q = np.quantile(fleet.tops, [0.34, 0.67])
+    tier = np.digitize(-fleet.tops, [-q[1], -q[0]])  # 0=fast..2=slow
+    caps = np.array(strategy.rank_caps)[
+        np.clip(tier, 0, len(strategy.rank_caps) - 1)]
+
+    def mk(p, leaf):
+        base = torch.ones((N,) + tuple(leaf.shape), device=leaf.device)
+        if "lora" in p and leaf.dim() >= 2 and (p.endswith("['a']")
+                                                or p.endswith("['b']")):
+            r_axis = leaf.dim() - 1 if p.endswith("['a']") else leaf.dim() - 2
+            r = leaf.shape[r_axis]
+            for n in range(N):
+                sl = [slice(None)] * (leaf.dim() + 1)
+                sl[0] = n
+                sl[r_axis + 1] = slice(max(1, int(caps[n] * r)), None)
+                base[tuple(sl)] = 0.0
+        return base
+
+    return map_with_path(mk, proto)
+
+
+# ---------------------------------------------------------------------------
+# the round
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FedRun:
+    task: MMTask
+    strategy: Strategy
+    fleet: FleetConfig
+    fed: FedConfig
+    state: FedState
+    local_update: Any
+    rank_gate: Any  # None without rank caps
+    personal_mask: Any
+    history: dict
+    proto: Any  # trainable prototype (zero-round shapes/dtypes)
+
+    @classmethod
+    def create(cls, task: MMTask, trainable0: Any, strategy: Strategy,
+               fleet: FleetConfig, fed: FedConfig) -> FedRun:
+        """The round runs where ``trainable0`` lives: the CUDA kernels on
+        the card, their plain versions on the CPU."""
+        state = FedState(
+            round=0, trainable=trainable0,
+            client_trainable=tree_map(
+                lambda x: x.expand((fleet.N,) + x.shape), trainable0),
+            dbar=np.ones(task.layout.G) * 1e-6, mag_ema=np.ones(task.layout.G),
+            rng=np.random.default_rng(fed.seed))
+        history = {"round": [], "loss": [], "round_time_s": [],
+                   "energy_j": [], "upload_mb": [], "f1": [], "f1_round": [],
+                   "divergence": [], "selected_frac": []}
+        return cls(task, strategy, fleet, fed, state,
+                   make_local_update(task, fed, strategy.prox_mu),
+                   _rank_gates(trainable0, strategy, fleet),
+                   _personal_leaf_mask(trainable0, strategy), history,
+                   trainable0)
+
+    @property
+    def device(self) -> torch.device:
+        return leaves(self.state.trainable)[0].device
+
+    @property
+    def _has_personal(self) -> bool:
+        return any(leaves(self.personal_mask))
+
+    # -- one round ------------------------------------------------------------
+
+    def round(self, dataset) -> dict:
+        task, strategy, fleet, fed = (self.task, self.strategy, self.fleet,
+                                      self.fed)
+        layout, state, dev = task.layout, self.state, self.device
+        N, G = fleet.N, layout.G
+        f32 = dict(dtype=torch.float32, device=dev)
+
+        # --- participation / fault injection
+        participating = np.ones(N, bool)
+        if fed.participation < 1.0:
+            m = max(1, int(fed.participation * N))
+            participating[:] = False
+            participating[state.rng.choice(N, m, replace=False)] = True
+        if fed.dropout_prob > 0:
+            participating &= state.rng.random(N) > fed.dropout_prob
+            if not participating.any():
+                participating[state.rng.integers(N)] = True
+
+        # --- server: allocation
+        S, _ = allocate(strategy, state, task, fleet, fed, layout.flops)
+        S &= participating[:, None]
+
+        # --- clients: local training
+        steps = fed.local_epochs * fed.steps_per_epoch
+        batches = draw_client_batches(state.rng, dataset, range(N), steps,
+                                      fed.batch_size, dev)
+        start = self._start_trainable()
+        trained = torch.as_tensor(S, **f32)
+        mmasks = torch.as_tensor(fleet.modality_mask, **f32)
+        deltas, losses = self.local_update(start, batches, mmasks, trained,
+                                           fed.lr, self.rank_gate)
+
+        # --- server: aggregation
+        if strategy.agg == "cohort":
+            W = AG.cohort_weights(layout, trained, mmasks)
+        elif strategy.agg in ("dimension", "helora"):
+            # cohort-style masked means without Eq. 4's B-weighting
+            W = AG.cohort_weights(layout, trained, torch.ones_like(mmasks))
+        else:  # fedavg: every participant averaged into every group
+            W = AG.fedavg_weights(N, G, torch.as_tensor(participating, **f32))
+        if strategy.agg == "helora":
+            new_trainable = self._helora_aggregate(deltas, W)
+        else:
+            new_trainable = AG.aggregate(layout, state.trainable, deltas, W,
+                                         fed.server_lr)
+        # personalized leaves are NEVER aggregated into the global model
+        new_trainable = tree_map(lambda old, new, pers: old if pers else new,
+                                 state.trainable, new_trainable,
+                                 self.personal_mask)
+        self._update_personal(start, deltas, participating)
+
+        # --- divergence tracking (Eq. 5-6) on possession cohorts
+        cohort = torch.as_tensor(layout.accessible(fleet.modality_mask)
+                                 & participating[:, None] & S, **f32)
+        d = DV.group_divergence(layout, deltas, cohort).cpu().numpy()
+        # fp32, as the reference's jnp update makes it
+        state.dbar = DV.ema_update(state.dbar.astype(np.float32), d,
+                                   fed.gamma)
+        per_client_norms = mdlora.group_norms(layout, deltas,
+                                              batch_dims=1).cpu().numpy()
+        mag = (per_client_norms * S).sum(0) / np.maximum(S.sum(0), 1)
+        touched = S.any(0)
+        state.mag_ema[touched] = (0.5 * state.mag_ema + 0.5 * mag)[touched]
+
+        # --- system simulation (time / energy / comm)
+        trained_fl, fixed_fl = simulated_flops(task, fed, S)
+        upload = (np.asarray(S, np.float64) @ layout.sizes) * 4.0
+        cost = T.simulate_round(fleet, participating, trained_fl, fixed_fl,
+                                upload, fed.t_overhead, fed.utilization)
+
+        state.trainable = new_trainable
+        state.round += 1
+        rec = {"round": state.round, "loss": float(losses.mean()),
+               **cost.as_dict(), "selected_frac": float(S.mean()),
+               "divergence": d}
+        for key in ("round", "loss", "round_time_s", "upload_mb",
+                    "divergence", "selected_frac"):
+            self.history[key].append(rec[key])
+        self.history["energy_j"].append(rec["fleet_energy_j"])
+        return rec
+
+    # -- helpers ---------------------------------------------------------------
+
+    def _start_trainable(self) -> Any:
+        """Per-client starting point: personalized leaves from client state,
+        shared leaves broadcast from the global model."""
+        N = self.fleet.N
+        return tree_map(lambda g, c, pers: c if pers
+                        else g.expand((N,) + g.shape),
+                        self.state.trainable, self.state.client_trainable,
+                        self.personal_mask)
+
+    def _update_personal(self, start, deltas, participating) -> None:
+        if not self._has_personal:
+            return
+        dev = self.device
+        part = torch.as_tensor(participating, dtype=torch.float32, device=dev)
+        cluster = _clusters(self.fleet)
+        onehot = torch.as_tensor(
+            cluster[:, None] == np.unique(cluster)[None, :],
+            dtype=torch.float32, device=dev) * part[:, None]
+        mix = onehot @ (onehot / onehot.sum(0, keepdim=True).clamp(min=1.0)
+                        ).T  # [N, N] cluster-mean mix
+
+        def upd(c_old, s, d, pers):
+            if not pers:
+                return c_old
+            new = s.float() + d
+            if self.strategy.cluster_mix:
+                new = torch.einsum("nk,k...->n...", mix, new)
+            else:  # keep own value; non-participants keep the previous one
+                keep = part.reshape((-1,) + (1,) * (new.dim() - 1)) > 0
+                new = torch.where(keep, new, c_old.float())
+            return new.to(c_old.dtype)
+
+        self.state.client_trainable = tree_map(
+            upd, self.state.client_trainable, start, deltas,
+            self.personal_mask)
+
+    def _helora_aggregate(self, deltas, W) -> Any:
+        """Elementwise rank-masked mean for LoRA leaves; the group mean
+        (``W``: cohort weights without B-weighting) for the others."""
+        base = mdlora.weighted_combine(self.task.layout, deltas, W)
+        gates = (self.rank_gate if self.rank_gate is not None
+                 else tree_map(torch.ones_like, deltas))
+
+        def fix(p, agg, d_stack, m_stack):
+            if "lora" not in p:
+                return agg
+            num = (d_stack.float() * m_stack).sum(0)
+            return num / m_stack.sum(0).clamp(min=1e-9)
+
+        agg = map_with_path(fix, base, deltas, gates)
+        return tree_map(lambda t, d: (t.float() + self.fed.server_lr * d
+                                      ).to(t.dtype),
+                        self.state.trainable, agg)
+
+    # -- evaluation -------------------------------------------------------------
+
+    def evaluate(self, dataset) -> float:
+        if self._has_personal:
+            # personalized strategies: per-client models on local test data
+            f1s = []
+            start = self._start_trainable()
+            for n in range(self.fleet.N):
+                tr_n = tree_map(lambda x, n=n: x[n], start)
+                src = n % len(dataset.test_y)
+                f1s.append(self.task.eval_f1(tr_n, dataset.test_x[src],
+                                             dataset.test_y[src]))
+            return float(np.mean(f1s))
+        return self.task.eval_f1(self.state.trainable,
+                                 np.concatenate(dataset.test_x),
+                                 np.concatenate(dataset.test_y))
+
+    # -- full loop ---------------------------------------------------------------
+
+    def run(self, dataset, rounds: int | None = None,
+            log_every: int = 0) -> dict:
+        rounds = rounds or self.fed.rounds
+        for r in range(rounds):
+            rec = self.round(dataset)
+            if (r + 1) % self.fed.eval_every == 0 or r == rounds - 1:
+                f1 = self.evaluate(dataset)
+                self.history["f1"].append(f1)
+                self.history["f1_round"].append(rec["round"])
+                if log_every and (r + 1) % log_every == 0:
+                    print(f"[{self.strategy.name}] round {rec['round']:4d} "
+                          f"loss {rec['loss']:.4f} F1 {f1:.4f} "
+                          f"t={rec['round_time_s']:.3f}s")
+        return self.history

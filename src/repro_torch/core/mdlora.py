@@ -6,8 +6,11 @@ All trainable parameters are organized into G groups
     G = M fusion blocks + 1 shared B + sum_m L_m encoder groups + L_H head
 
 A ``GroupLayout`` indexes every trainable leaf (or row range of the blocked
-fusion leaf) to a group id and carries per-group metadata. Leaves are walked
-in sorted key order, as JAX flattens dicts, so group ids equal the
+fusion leaf, or axis-0 slice of a layer-stacked leaf) to a group id and
+carries per-group metadata. The blocked leaf is Backbone 1's ``fusion_w0``
+or Backbone 2's fusion LoRA ``a``; Backbone 2's stacked encoder LoRA leaves
+``[L, ...]`` give one group ``E_{m}_L{l}`` per layer. Leaves are walked in
+sorted key order, as JAX flattens dicts, so group ids equal the
 reference's: for PAMAP2 Backbone 1 the encoder groups come out acc, gyro,
 hr, mag -- not modality order -- while the fusion rows stay in modality
 order.
@@ -27,7 +30,7 @@ import torch
 from repro_torch.tree import leaves_with_path, map_with_path, path_str
 
 __all__ = ["GroupLayout", "mm_group_layout", "group_gate_tree",
-           "group_norms", "path_str", "KIND_FUSION_BLOCK", "KIND_FUSION_B",
+           "group_norms", "weighted_combine", "path_str", "KIND_FUSION_BLOCK", "KIND_FUSION_B",
            "KIND_ENCODER", "KIND_HEAD"]
 
 KIND_FUSION_BLOCK = "fusion_block"
@@ -44,15 +47,15 @@ class GroupLayout:
     sizes: np.ndarray  # [G] param counts
     flops: np.ndarray  # [G] relative per-round training cost
     leaf_group: dict[str, int]  # whole-leaf path -> group id
-    # layer-stacked leaf -> per-slice gid (Backbone 2's encoders; empty for
-    # Backbone 1, the only backbone ported so far)
+    # layer-stacked leaf -> per-slice gid (Backbone 2's encoder LoRA)
     leaf_axis0_groups: dict[str, np.ndarray]
     fusion_a_path: str | None  # the row-blocked leaf
     fusion_rows: list[tuple[int, int, int]]  # (row_start, row_end, group_id)
     n_modalities: int
-    # (D, device) -> row_group_vector(D) on that device
-    _row_index: dict = dataclasses.field(default_factory=dict, repr=False,
-                                         compare=False)
+    # (D, device) -> row_group_vector(D), (path, device) -> slice gids,
+    # as tensors on that device
+    _index: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     @property
     def G(self) -> int:
@@ -89,20 +92,37 @@ class GroupLayout:
         """``row_group_vector(D)`` as an int64 tensor on ``device``, built
         once per (D, device) so hot loops copy nothing to the card."""
         key = (D, str(device))
-        if key not in self._row_index:
-            self._row_index[key] = torch.as_tensor(
+        if key not in self._index:
+            self._index[key] = torch.as_tensor(
                 self.row_group_vector(D), dtype=torch.int64, device=device)
-        return self._row_index[key]
+        return self._index[key]
+
+    def split_index(self, path: str, rows: int,
+                    device: torch.device) -> torch.Tensor | None:
+        """Group id of each axis-0 slice of a split leaf (the blocked
+        fusion leaf's ``rows`` rows, or a stacked leaf's layers) as an int64
+        tensor on ``device``; None for a whole-leaf group."""
+        if path == self.fusion_a_path:
+            return self.row_index(rows, device)
+        if path not in self.leaf_axis0_groups:
+            return None
+        key = (path, str(device))
+        if key not in self._index:
+            self._index[key] = torch.as_tensor(
+                self.leaf_axis0_groups[path], dtype=torch.int64,
+                device=device)
+        return self._index[key]
 
 
 def mm_group_layout(cfg, trainable: dict) -> GroupLayout:
-    """Build the paper's G-group layout from an MMConfig + the Backbone-1
-    trainable tree (every parameter)."""
+    """Build the paper's G-group layout from an MMConfig + a trainable
+    subtree (full params for Backbone 1; {lora, head} for Backbone 2)."""
     names: list[str] = []
     kinds: list[str] = []
     modality: list[int] = []
     sizes: list[int] = []
     leaf_group: dict[str, int] = {}
+    leaf_axis0_groups: dict[str, np.ndarray] = {}
     fusion_rows: list[tuple[int, int, int]] = []
     fusion_a_path: str | None = None
 
@@ -119,23 +139,42 @@ def mm_group_layout(cfg, trainable: dict) -> GroupLayout:
         g = new_group(f"A_{m.name}", KIND_FUSION_BLOCK, i)
         fusion_rows.append((off, off + m.d_feat, g))
         off += m.d_feat
-    new_group("B_shared", KIND_FUSION_B, -1)
+    b_gid = new_group("B_shared", KIND_FUSION_B, -1)
 
     mod_index = {m.name: i for i, m in enumerate(cfg.modalities)}
     enc_groups: dict[tuple[int, str], int] = {}
     head_groups: dict[str, int] = {}
 
     for p, leaf in leaves_with_path(trainable):
-        if "fusion_w0" in p:  # Backbone 1: the FC weight itself is blocked
+        is_fusion = "fusion" in p
+        if (is_fusion and p.endswith("['a']")) or "fusion_w0" in p:
+            # Backbone 2's fusion LoRA a, or Backbone 1's FC weight itself
             fusion_a_path = p
             dout = leaf.shape[1]
             for s, e, g in fusion_rows:
                 sizes[g] += (e - s) * dout
             continue
+        if is_fusion and p.endswith("['b']"):
+            leaf_group[p] = b_gid
+            sizes[b_gid] += leaf.numel()
+            continue
         enc_mod = next((mod_index[nm] for nm in mod_index
                         if f"['{nm}']" in p), None)
-        if enc_mod is not None:  # per-module encoder leaf (conv1/conv2/proj)
+        if enc_mod is not None:
             mname = cfg.modalities[enc_mod].name
+            if "layers" in p:  # layer-stacked leaf: one group per layer
+                n_l = leaf.shape[0]
+                gids = []
+                for layer in range(n_l):
+                    kk = (enc_mod, f"L{layer}")
+                    if kk not in enc_groups:
+                        enc_groups[kk] = new_group(f"E_{mname}_L{layer}",
+                                                   KIND_ENCODER, enc_mod)
+                    gids.append(enc_groups[kk])
+                    sizes[enc_groups[kk]] += leaf.numel() // n_l
+                leaf_axis0_groups[p] = np.array(gids, np.int32)
+                continue
+            # per-module leaf (conv1/conv2/proj)
             toks = re.findall(r"\['(\w+)'\]", p)
             label = toks[min(toks.index(mname) + 1, len(toks) - 1)]
             kk = (enc_mod, label)
@@ -155,21 +194,22 @@ def mm_group_layout(cfg, trainable: dict) -> GroupLayout:
     sizes_np = np.array(sizes, np.int64)
     flops = np.maximum(sizes_np.astype(np.float64), 1.0)
     return GroupLayout(names, kinds, np.array(modality, np.int32), sizes_np,
-                       flops, leaf_group, {}, fusion_a_path, fusion_rows,
-                       cfg.M)
+                       flops, leaf_group, leaf_axis0_groups, fusion_a_path,
+                       fusion_rows, cfg.M)
 
 
 def group_gate_tree(layout: GroupLayout, tree: Any,
                     gate: torch.Tensor) -> Any:
-    """gate: [*B, G] -> tree with per-group gates applied (fusion rows get
-    their block's gate); leaves carry the same leading ``*B`` axes. Used to
-    mask gradients (elastic training) and uploads (Eq. 8)."""
+    """gate: [*B, G] -> tree with per-group gates applied (fusion rows and
+    stacked-layer slices get their group's gate); leaves carry the same
+    leading ``*B`` axes. Used to mask gradients (elastic training) and
+    uploads (Eq. 8). A leaf the layout does not place is zeroed."""
     nb = gate.dim() - 1
 
     def gate_leaf(p, leaf):
-        if p == layout.fusion_a_path:
-            rg = layout.row_index(leaf.shape[nb], leaf.device)
-            g = gate[..., rg].to(leaf.dtype)  # [*B, D]
+        idx = layout.split_index(p, leaf.shape[nb], leaf.device)
+        if idx is not None:
+            g = gate[..., idx].to(leaf.dtype)  # [*B, D] or [*B, L]
             return leaf * g.reshape(g.shape + (1,) * (leaf.dim() - nb - 1))
         if p in layout.leaf_group:
             g = gate[..., layout.leaf_group[p]].to(leaf.dtype)  # [*B]
@@ -189,12 +229,36 @@ def group_norms(layout: GroupLayout, tree: Any,
         if acc is None:
             acc = torch.zeros(x32.shape[:batch_dims] + (layout.G,),
                               dtype=torch.float32, device=x32.device)
-        if p == layout.fusion_a_path:
-            rg = layout.row_index(leaf.shape[batch_dims], leaf.device)
+        idx = layout.split_index(p, leaf.shape[batch_dims], leaf.device)
+        if idx is not None:
             per_row = x32.square().sum(
-                dim=tuple(range(batch_dims + 1, x32.dim())))  # [*B, D]
-            acc = acc.index_add(batch_dims, rg, per_row)
+                dim=tuple(range(batch_dims + 1, x32.dim())))  # [*B, D|L]
+            acc = acc.index_add(batch_dims, idx, per_row)
         elif p in layout.leaf_group:
             s = x32.square().sum(dim=tuple(range(batch_dims, x32.dim())))
             acc[..., layout.leaf_group[p]] += s
     return acc
+
+
+def weighted_combine(layout: GroupLayout, deltas: Any,
+                     W: torch.Tensor) -> Any:
+    """Aggregate client-stacked deltas with per-(client, group) weights.
+
+    deltas: tree with a leading client axis N on every leaf; W: [N, G]
+    combine weights (rows need not sum to 1; the caller normalizes).
+    -> tree without the client axis: sum_n W[n, g_leaf] * delta_n, in fp32.
+    """
+    W = W.float()
+
+    def combine(p, leaf):
+        x = leaf.float()
+        idx = layout.split_index(p, leaf.shape[1], leaf.device)
+        if idx is not None:
+            n, rows = x.shape[:2]
+            out = torch.einsum("nd,ndr->dr", W[:, idx], x.reshape(n, rows, -1))
+            return out.reshape(x.shape[1:])
+        if p in layout.leaf_group:
+            return torch.einsum("n,n...->...", W[:, layout.leaf_group[p]], x)
+        return torch.zeros(leaf.shape[1:], device=leaf.device)
+
+    return map_with_path(combine, deltas)

@@ -1,4 +1,6 @@
-"""Evaluation metrics (paper VI-A1): macro-F1 of the global model."""
+"""Evaluation metrics (paper VI-A1): macro-F1, the per-modality F1
+breakdown (Fig. 6: the model evaluated with only that modality present) and
+the rare-modality F1 (mean over the small-cohort modalities)."""
 from __future__ import annotations
 
 import numpy as np
@@ -36,3 +38,17 @@ def evaluate_mm(params, cfg, xs: np.ndarray, ys: np.ndarray,
         x = torch.as_tensor(xs[i:i + batch], device=device)
         preds.append(mm_forward(params, cfg, x, mask).argmax(-1).cpu().numpy())
     return macro_f1(ys, np.concatenate(preds), cfg.n_classes)
+
+
+def per_modality_f1(params, cfg, xs, ys, batch: int = 256) -> dict[str, float]:
+    """Fig. 6: F1 with only modality m present (others zero-masked)."""
+    out = {}
+    for i, m in enumerate(cfg.modalities):
+        mask = np.zeros((1, cfg.M), np.float32)
+        mask[0, i] = 1.0
+        out[m.name] = evaluate_mm(params, cfg, xs, ys, mask, batch)
+    return out
+
+
+def rare_modality_f1(per_mod: dict[str, float], rare: tuple[str, ...]) -> float:
+    return float(np.mean([per_mod[m] for m in rare]))

@@ -1,12 +1,15 @@
-"""Wrappers for the gathered multi-adapter block-LoRA projection, and the
-modality row masks it takes.
+"""Wrappers for the fused block-LoRA projections, and the modality row masks
+they take:
+
+* ``mdlora_matmul``       one adapter for every row (the Backbone 2 fusion
+  layer), kernel ``csrc/mdlora.cu``; its gradient is ``autograd.py``;
+* ``mdlora_matmul_multi`` one adapter per row, gathered (serving), kernel
+  ``csrc/mdlora_multi.cu``.
 
 Dispatch is by the tensor's device, with no fallback: a CPU tensor goes to
-the plain version in ``ref.py``; a CUDA tensor launches the CUDA kernel in
-``csrc/mdlora_multi.cu`` or raises. ``LAUNCHES`` counts calls that launched
-the kernel (never the plain version). The single-adapter kernel
-(``mdlora_matmul_pallas``) is not ported; its plain version stays in
-``ref.py`` as the tests' oracle.
+the plain version in ``ref.py``; a CUDA tensor launches the CUDA kernel or
+raises. ``LAUNCHES`` counts calls that launched a kernel (never the plain
+version).
 """
 from __future__ import annotations
 
@@ -21,30 +24,38 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.mdlora import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mdlora_multi.cu"
-LAUNCHES = {"mdlora_matmul_multi": 0}
+FUSED_SOURCE = SOURCE.with_name("mdlora.cu")
+LAUNCHES = {"mdlora_matmul": 0, "mdlora_matmul_multi": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    LAUNCHES["mdlora_matmul_multi"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
-def block_row_mask(block_dims: Sequence[int], modality_mask) -> torch.Tensor:
-    """[M] modality availability -> [D] fp32 row mask over the fusion
-    input, block m repeated ``block_dims[m]`` times."""
-    mm = torch.as_tensor(modality_mask, dtype=torch.float32)
-    reps = torch.as_tensor(list(block_dims), device=mm.device)
-    return torch.repeat_interleave(mm, reps)
+@functools.cache
+def _row_blocks(block_dims: tuple[int, ...], device: str) -> torch.Tensor:
+    """[D] block index of each row, built once per (blocks, device), so a
+    mask costs one gather and no copy to the card."""
+    reps = torch.as_tensor(block_dims)
+    return torch.repeat_interleave(torch.arange(len(block_dims)),
+                                   reps).to(device)
 
 
 def block_row_masks(block_dims: Sequence[int], modality_masks
                     ) -> torch.Tensor:
-    """[B, M] per-request availability -> [B, D] row masks."""
+    """[..., M] availability (e.g. [B, M] per request) -> [..., D] fp32 row
+    masks over the fusion input, block m repeated ``block_dims[m]`` times."""
     mm = torch.as_tensor(modality_masks, dtype=torch.float32)
-    reps = torch.as_tensor(list(block_dims), device=mm.device)
-    return torch.repeat_interleave(mm, reps, dim=-1)
+    return mm[..., _row_blocks(tuple(block_dims), str(mm.device))]
+
+
+def block_row_mask(block_dims: Sequence[int], modality_mask) -> torch.Tensor:
+    """[M] modality availability -> [D] fp32 row mask."""
+    return block_row_masks(block_dims, modality_mask)
 
 
 @functools.cache
@@ -56,6 +67,79 @@ def _lib() -> ctypes.CDLL:
                                  _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
     lib.mdlora_multi.restype = _I
     return lib
+
+
+@functools.cache
+def _fused_lib() -> ctypes.CDLL:
+    lib = runtime.load_library(FUSED_SOURCE)
+    lib.mdlora_max_rank.argtypes = []
+    lib.mdlora_max_rank.restype = _I
+    L = ctypes.c_longlong
+    lib.mdlora_fused.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, _I, _I,
+                                 _I, _I, _I, _I, L, L, L, L, L, _P, _P]
+    lib.mdlora_fused.restype = _I
+    return lib
+
+
+def mdlora_matmul(x, w0, a, b, row_mask, scale: float = 2.0):
+    """y = (x*m)@W0 + ((x*m)@a)@b*scale, one adapter for every row.
+
+    x [T, D]; w0 [D, F]; a [D, r]; b [r, F]; row_mask [D] fp32 (None = all
+    ones). Any operand may carry one leading batch axis K (x [K, T, D], w0
+    [K, D, F], a [K, D, r], b [K, r, F], row_mask [K, D]); an operand
+    without it is shared by every slice (the kernel reads it with stride 0).
+    -> [T, F], or [K, T, F] when some operand is batched, in x's dtype.
+    """
+    if x.device.type == "cpu":
+        return ref.mdlora_matmul_ref(x, w0, a, b, row_mask, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be fp32 or bf16, got {x.dtype}")
+    ops = (("x", x, 2), ("w0", w0, 2), ("a", a, 2), ("b", b, 2))
+    if row_mask is not None:
+        ops += (("row_mask", row_mask, 1),)
+    Ks = set()
+    for name, t, nd in ops:
+        if t.dim() not in (nd, nd + 1):
+            raise ValueError(f"{name} must have {nd} dims, or {nd + 1} with "
+                             f"a batch axis; got shape {tuple(t.shape)}")
+        if t.dim() == nd + 1:
+            Ks.add(t.shape[0])
+    if len(Ks) > 1:
+        raise ValueError(f"batch axes disagree: {sorted(Ks)}")
+    K = Ks.pop() if Ks else None
+    T, D = x.shape[-2:]
+    F, r = w0.shape[-1], a.shape[-1]
+    if min(T, D, F, r, K or 1) < 1 or r > _fused_lib().mdlora_max_rank():
+        raise ValueError(f"unsupported shapes x {tuple(x.shape)}, w0 "
+                         f"{tuple(w0.shape)}, a {tuple(a.shape)}")
+    dev = x.device
+    lead = lambda t, nd: (K,) if t.dim() == nd + 1 else ()  # noqa: E731
+    for name, t, shape, dt in (
+            ("x", x, (T, D), x.dtype), ("w0", w0, (D, F), x.dtype),
+            ("a", a, (D, r), x.dtype), ("b", b, (r, F), x.dtype)) + (
+            () if row_mask is None else
+            (("row_mask", row_mask, (D,), torch.float32),)):
+        runtime.check_cuda_tensor(name, t, dt, lead(t, len(shape)) + shape,
+                                  dev)
+    stride = lambda t, nd: (t[0].numel() if t is not None  # noqa: E731
+                            and t.dim() == nd + 1 else 0)
+    out = torch.empty((T, F) if K is None else (K, T, F), dtype=x.dtype,
+                      device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fused_lib().mdlora_fused(
+            x.data_ptr(), w0.data_ptr(), a.data_ptr(), b.data_ptr(),
+            None if row_mask is None else row_mask.data_ptr(), float(scale),
+            K or 1, T, D, F, r, _DTYPES[x.dtype], stride(x, 2),
+            stride(w0, 2), stride(a, 2), stride(b, 2), stride(row_mask, 1),
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mdlora_matmul: CUDA launch failed with error "
+                           f"{err}")
+    LAUNCHES["mdlora_matmul"] += 1
+    return out
 
 
 @functools.cache

@@ -3,20 +3,31 @@
     y = (x * row_mask) @ W0  +  ((x * row_mask) @ a) @ b * scale
 
 ``row_mask`` zeroes the input rows of absent modality blocks (Eq. 1/2).
-Both products run in fp32 and the result is cast to x's dtype, as in the
-kernels. ``mdlora_matmul_ref`` (one adapter for every row) is the per-row
-oracle of the tests; its kernel is not ported.
+Both products run in fp32 (fp64 for fp64 inputs, which the gradient check
+uses) and the result is cast to x's dtype, as in the kernels.
+``mdlora_matmul_ref`` (one adapter for every row, kernel ``csrc/mdlora.cu``)
+broadcasts over one optional leading batch axis of any operand.
 """
 from __future__ import annotations
 
 import torch
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the products accumulate in: fp32, or fp64 for fp64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def mdlora_matmul_ref(x, w0, a, b, row_mask, scale):
-    """x [T, D]; w0 [D, F]; a [D, r]; b [r, F]; row_mask [D] -> [T, F]."""
-    xm = x.float() * row_mask.float()[None, :]
-    lora = (xm @ a.float()) @ b.float() * scale
-    return (xm @ w0.float() + lora).to(x.dtype)
+    """x [T, D]; w0 [D, F]; a [D, r]; b [r, F]; row_mask [D] (None = all
+    ones) -> [T, F]. Any operand may carry a leading batch axis K (x [K, T,
+    D], w0 [K, D, F], row_mask [K, D], ...); the result then is [K, T, F]."""
+    acc = acc_dtype(x.dtype)
+    xm = x.to(acc)
+    if row_mask is not None:
+        xm = xm * row_mask.to(acc).unsqueeze(-2)
+    lora = (xm @ a.to(acc)) @ b.to(acc) * scale
+    return (xm @ w0.to(acc) + lora).to(x.dtype)
 
 
 def mdlora_matmul_multi_ref(x, w0, a, b, adapter_idx, row_mask, scale):

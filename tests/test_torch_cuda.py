@@ -1,6 +1,6 @@
-"""The CUDA kernels (cohort aggregation, flash attention, gathered
-multi-LoRA, the SSD scan) against their plain PyTorch versions, on the
-card. Marked
+"""The CUDA kernels (cohort aggregation, flash attention, the fused and
+the gathered block-LoRA projections, the SSD scan) against their plain
+PyTorch versions, on the card. Marked
 ``cuda``: each test skips without a card, and the file imports no JAX so it
 runs on a machine that has only the port's dependencies:
 
@@ -17,6 +17,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.mdlora import ops as md_ops  # noqa: E402
 from repro_torch.kernels.mdlora import ref as md_ref  # noqa: E402
+from repro_torch.kernels.mdlora.autograd import fused_block_lora  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
@@ -266,6 +267,111 @@ def test_mdlora_kernel_rows_are_batch_invariant(dev, dtype, B, D, F):
     assert torch.equal(yp, full[perm])
 
 
+# the fused projection, one adapter for every row (TPU kernel 3)
+
+def _fused_inputs(K, T, D, F, r, dtype, dev, seed, share=("w0",)):
+    """x [K, T, D], W0 [D, F], a [K, D, r], b [K, r, F], mask [K, D]; the
+    operands named in ``share`` lose their batch axis (stride 0)."""
+    g = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa: E731
+    ops = {"x": t(g.normal(size=(K, T, D))),
+           "w0": t(g.normal(size=(K, D, F)) / np.sqrt(D)),
+           "a": t(g.normal(size=(K, D, r)) / np.sqrt(D)),
+           "b": t(0.3 * g.normal(size=(K, r, F)))}
+    blocks = [D // 4] * 3 + [D - 3 * (D // 4)]
+    mm = (g.random((K, 4)) < 0.6).astype(np.float32)
+    mm[:, 0] = 1.0
+    ops["mask"] = t(np.repeat(mm, blocks, axis=1))
+    for name in share:
+        ops[name] = ops[name][0].contiguous()
+    return tuple(v.to(dtype) if k != "mask" else v for k, v in ops.items()) \
+        + (2.0,)
+
+
+FUSED_CASES = [  # K, T, D, F, r, shared operands
+    (8, 32, 112, 128, 8, ("w0",)),  # the training path: 8 clients, W0 frozen
+    (1, 256, 112, 128, 8, ("w0", "a", "b", "mask")),  # an evaluation batch
+    (3, 37, 100, 70, 5, ("w0",)),  # ragged T, D, F
+    (5, 65, 33, 130, 64, ()),  # every operand batched, the largest rank
+    (4, 16, 64, 64, 1, ("a", "b")),  # adapters shared, W0 batched
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("K,T,D,F,r,share", FUSED_CASES)
+def test_fused_mdlora_kernel_matches_plain(dev, dtype, K, T, D, F, r, share):
+    args = _fused_inputs(K, T, D, F, r, dtype, dev, K + T + D, share)
+    before = md_ops.LAUNCHES["mdlora_matmul"]
+    got = md_ops.mdlora_matmul(*args)
+    torch.cuda.synchronize()
+    assert md_ops.LAUNCHES["mdlora_matmul"] == before + 1
+    want = md_ref.mdlora_matmul_ref(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    atol, rtol = MD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    again = md_ops.mdlora_matmul(*args)  # fixed order, no atomics
+    assert torch.equal(got, again)
+
+
+def test_fused_mdlora_kernel_unbatched_and_masked_rows(dev):
+    """2-D operands give [T, F]; absent rows poisoned with 1e4 do not reach
+    y (bitwise: the product of a zeroed row is exactly 0)."""
+    x, w0, a, b, mask, s = _fused_inputs(1, 40, 112, 128, 8, torch.float32,
+                                         dev, 3, ("x", "w0", "a", "b",
+                                                  "mask"))
+    y = md_ops.mdlora_matmul(x, w0, a, b, mask, s)
+    assert y.shape == (40, 128)
+    torch.testing.assert_close(y, md_ref.mdlora_matmul_ref(x, w0, a, b, mask,
+                                                           s),
+                               atol=1e-4, rtol=1e-4)
+    poisoned = x + (1.0 - mask) * 1e4
+    assert torch.equal(md_ops.mdlora_matmul(poisoned, w0, a, b, mask, s), y)
+
+
+def test_fused_mdlora_backward_on_card_matches_cpu(dev):
+    """vmap(grad) over 8 clients through the autograd Function: the card
+    (one kernel launch per forward, PyTorch backward) against the CPU
+    (plain version), fp32 to 1e-4; absent rows of da exactly 0 on both."""
+    x, w0, a, b, mask, s = _fused_inputs(8, 32, 112, 128, 8, torch.float32,
+                                         "cpu", 4)
+
+    def grads(dv):
+        def loss(a_, b_, x_, m_):
+            y = fused_block_lora(x_, w0.to(dv), a_, b_, m_, s)
+            return torch.tanh(y).square().sum()
+        return torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
+            a.to(dv), b.to(dv), x.to(dv), mask.to(dv))
+
+    before = md_ops.LAUNCHES["mdlora_matmul"]
+    card = grads(dev)
+    torch.cuda.synchronize()
+    assert md_ops.LAUNCHES["mdlora_matmul"] == before + 1
+    for name, g_card, g_cpu in zip(("da", "db", "dx"), card, grads("cpu")):
+        torch.testing.assert_close(g_card.cpu(), g_cpu, atol=1e-4, rtol=1e-4,
+                                   msg=name)
+    assert (card[0][mask.to(dev) == 0] == 0).all()
+
+
+def test_fused_mdlora_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, w0, a, b, mask, s = _fused_inputs(2, 8, 32, 16, 4, torch.float32,
+                                         dev, 0)
+    with pytest.raises(TypeError):
+        md_ops.mdlora_matmul(x, w0.bfloat16(), a, b, mask, s)
+    with pytest.raises(TypeError):
+        md_ops.mdlora_matmul(x, w0, a, b, mask.bfloat16(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        md_ops.mdlora_matmul(x, w0.t().contiguous().t(), a, b, mask, s)
+    with pytest.raises(ValueError, match="batch axes"):
+        md_ops.mdlora_matmul(x, w0, a[:1].contiguous(), b, mask, s)
+    with pytest.raises(ValueError, match="unsupported"):
+        md_ops.mdlora_matmul(*_fused_inputs(1, 8, 32, 16, 65, torch.float32,
+                                            dev, 0))
+    with pytest.raises(ValueError, match="shape"):
+        md_ops.mdlora_matmul(x, w0, a, b, mask[:, :31].contiguous(), s)
+
+
 def test_cpu_tensors_never_reach_a_launch_counter(dev):
     before = (dict(fa_ops.LAUNCHES), dict(md_ops.LAUNCHES))
     cpu = torch.device("cpu")
@@ -273,6 +379,8 @@ def test_cpu_tensors_never_reach_a_launch_counter(dev):
                                        cpu, 0))
     md_ops.mdlora_matmul_multi(*_md_inputs(2, 32, 16, 4, 2, torch.float32,
                                            cpu, 0), scale=2.0)
+    md_ops.mdlora_matmul(*_fused_inputs(3, 5, 20, 9, 2, torch.float32, cpu,
+                                        0))
     assert (dict(fa_ops.LAUNCHES), dict(md_ops.LAUNCHES)) == before
 
 
