@@ -21,13 +21,18 @@ Phases, each printing its lines (and its wall time) before the last:
               CPU (plain versions), both uplinks
   6. serve kernels  flash attention and the gathered multi-LoRA projection
               vs their plain versions at the serving path's shapes
-              (phi3-medium-14b decode and prefill, the wq/wv/wo
-              projections), plus window/softcap and ragged cases and a
-              bitwise batch-invariance check; error, device time (CUDA
-              graph), eager call time, plain time, bound, library time
+              (phi3-medium-14b decode and prefill, hymba-1.5b's head layout
+              and window, the wq/wv/wo projections), plus window/softcap
+              and ragged cases and a bitwise batch-invariance check; each
+              flash case names its path (bf16 prefill, bf16 split-KV decode
+              and its chunk count, fp32); error, device time (CUDA graph),
+              eager call time, plain time, bound, library time (SDPA for
+              attention), and each bf16 flash instantiation's dynamic
+              shared memory
   7. serve    ``serve.run_batched`` on phi3-medium-14b FULL (40 layers,
               bf16, random weights drawn on the card): B=8, P=512, 32
-              decode steps, flash attention; launch counts zeroed just
+              decode steps, flash attention (40 prefill and 1,280 decode
+              calls of the op, asserted by path); launch counts zeroed just
               before and read just after
   8. engine   ``serve.run_engine`` on the same weights: 16 adapters with
               modality masks, 16 slots, 32 requests with prompts of 64-256
@@ -109,6 +114,8 @@ KERNELS = {
     "cohort_agg_divergence_quant":
         "src/repro/kernels/cohort_agg/kernel.py:130",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
+    "flash_attention_prefill":
+        "src/repro/kernels/flash_attention/kernel.py:72",
     "mdlora_matmul_multi": "src/repro/kernels/mdlora/kernel.py:70",
     "ssd": "src/repro/kernels/ssd/kernel.py:65",
     "mdlora_matmul": "src/repro/kernels/mdlora/kernel.py:117",
@@ -159,7 +166,8 @@ def build_kernels(runtime, sources) -> None:
         say(f"[build] {b.source.relative_to(ROOT)}: "
             + (f"{b.seconds:.1f}s" if b.seconds else "already built"))
         for line in b.log.splitlines():
-            if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+            if ("ptxas info" in line and ("Used" in line or "Compiling" in
+                                          line)) or "spill" in line:
                 say(f"[build]   {line.strip()}")
 
 
@@ -400,6 +408,10 @@ FA_CASES = [  # label, B, S, T, K, G, hd, filled, window, softcap, bf16?
     ("prefill fp32", 8, 512, 544, 10, 4, 128, 512, None, None, False),
     ("window+softcap", 2, 256, 300, 4, 2, 128, 300, 64, 50.0, True),
     ("ragged T", 2, 37, 97, 3, 3, 64, 90, None, None, False),
+    # hymba-1.5b's head layout (hd 64, 5 KV heads of 5) and its 1024-token
+    # window, which hides the oldest cached keys from every query
+    ("hymba prefill", 4, 512, 1600, 5, 5, 64, 1536, 1024, None, True),
+    ("hymba decode", 8, 1, 1600, 5, 5, 64, 1536, 1024, None, True),
 ]
 # |kernel - plain| <= atol + rtol*|plain|, the plain version computed in
 # fp32 on the same input values. Both accumulate in fp32; a bf16 output
@@ -477,6 +489,10 @@ def _fa_inputs(torch, B, S, T, K, G, hd, filled, bf16, seed):
 def check_flash(torch, fa_ops, fa_ref) -> dict:
     import torch.nn.functional as F
 
+    say("[flash] bf16 dynamic shared memory per launch (prefill / decode): "
+        + ", ".join(f"hd<={hd} {fa_ops.smem_bytes(hd, 'prefill')} / "
+                    f"{fa_ops.smem_bytes(hd, 'decode')} B"
+                    for hd in (32, 64, 128, 256)))
     out = {}
     for (label, B, S, T, K, G, hd, filled, window, cap, bf16) in FA_CASES:
         q, k, v, qp, kp = _fa_inputs(torch, B, S, T, K, G, hd, filled, bf16,
@@ -517,12 +533,17 @@ def check_flash(torch, fa_ops, fa_ref) -> dict:
                                 q, k, v, attn_mask=mask, enable_gqa=True))
             lib_ms, _ = time_ms(torch, lib, iters)
             del heads
+        n_split = fa_ops.plan_splits(q.shape, T)
+        path = ("fp32" if not bf16 else "prefill" if n_split == 0
+                else f"decode, {n_split} chunks")
         say(f"[flash] {label} B={B} S={S} T={T} K={K} G={G} hd={hd} "
-            f"{'bf16' if bf16 else 'fp32'}: max abs err {err:.2e} (atol "
-            f"{atol} + {rtol:.4g}*|plain fp32|) | device {ms * 1e3:.2f} us/call (graph), eager call "
+            f"{'bf16' if bf16 else 'fp32'} ({path}): max abs err {err:.2e} "
+            f"(atol {atol} + {rtol:.4g}*|plain fp32|) | device "
+            f"{ms * 1e3:.2f} us/call (graph), eager call "
             f"{call_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
             f"library (SDPA) "
-            + ("n/a" if lib_ms is None else f"{lib_ms * 1e3:.2f} us")
+            + ("n/a" if lib_ms is None else
+               f"{lib_ms * 1e3:.2f} us (kernel/SDPA {ms / lib_ms:.2f})")
             + f" | bound {b_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB "
             f"with K/V of the {seen} visible slots, "
             f"{4 * hd * pairs / 1e9:.2f} GFLOP) = {b_ms / ms:.1%}")
@@ -1312,6 +1333,7 @@ def main() -> None:
     sources = {"cohort_agg_divergence": ops.SOURCE,
                "cohort_agg_divergence_quant": ops.SOURCE,
                "flash_attention": fa_ops.SOURCE,
+               "flash_attention_prefill": fa_ops.SOURCE,
                "mdlora_matmul_multi": md_ops.SOURCE,
                "ssd": ssd_ops.SOURCE,
                "mdlora_matmul": md_ops.FUSED_SOURCE}
@@ -1323,7 +1345,9 @@ def main() -> None:
                    fa_ref)
     md_res = phase("serve kernels (mdlora)", check_mdlora, torch, md_ops,
                    md_ref)
-    results["flash_attention"] = fa_res["decode"]
+    results["flash_attention"] = dict(path="decode", **fa_res["decode"])
+    results["flash_attention_prefill"] = dict(path="prefill",
+                                              **fa_res["prefill"])
     results["mdlora_matmul_multi"] = md_res["wq"]
     full = dataclasses.replace(get_arch("phi3-medium-14b").FULL,
                                attn_impl="pallas")
@@ -1333,8 +1357,15 @@ def main() -> None:
     say(f"[serve] {full.arch} FULL: {api.param_count(params) / 1e9:.2f} B "
         f"parameters, {torch.cuda.memory_allocated() / 1e9:.1f} GB on the "
         f"card, drawn in {time.perf_counter() - t0:.1f}s")
-    launches["flash_attention"] = phase(
-        "serve", serve_batched, torch, serve, kops, full, params)
+    calls = phase("serve", serve_batched, torch, serve, kops, full, params)
+    by_path = dict(fa_ops.PATH_LAUNCHES)  # read before the engine resets it
+    say(f"[serve] flash_attention calls by path: {by_path} (expected "
+        f"prefill {full.n_layers}, decode {calls - full.n_layers})")
+    if by_path["prefill"] != full.n_layers or \
+            by_path["decode"] != calls - full.n_layers:
+        fail("batched serve did not take the prefill and decode paths")
+    launches["flash_attention"] = by_path["decode"]
+    launches["flash_attention_prefill"] = by_path["prefill"]
     launches["mdlora_matmul_multi"] = phase(
         "engine", serve_engine, torch, serve, kops, full, params)
     del params

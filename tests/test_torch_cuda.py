@@ -174,6 +174,82 @@ def test_flash_kernel_is_deterministic(dev):
                        fa_ops.flash_attention(*args))
 
 
+BF16_CASES = [  # B, S, T, K, G, hd, filled, window, softcap
+    (2, 100, 128, 5, 5, 64, 120, 1024, None),     # hymba prefill
+    (3, 1, 200, 5, 5, 64, 150, 1024, None),       # hymba decode
+    (1, 64, 4160, 16, 2, 128, None, 4096, 50.0),  # gemma2-27b prefill
+    (2, 1, 4160, 16, 2, 128, 4150, 4096, 50.0),   # gemma2-27b decode
+    (1, 40, 300, 2, 2, 256, 280, None, None),     # prefill, hd 256
+    (2, 4, 300, 3, 4, 128, 250, None, None),      # S*G = 16: decode
+    (2, 5, 300, 3, 4, 128, 250, None, None),      # S*G = 20: prefill
+    (2, 1, 300, 3, 17, 32, 250, 100, None),       # S*G = 17: prefill
+]
+
+
+@pytest.mark.parametrize("B,S,T,K,G,hd,filled,window,softcap", BF16_CASES)
+def test_flash_bf16_kernel_at_model_layouts(dev, B, S, T, K, G, hd, filled,
+                                           window, softcap):
+    """bf16 at hymba's and gemma2-27b's head layouts, hd 256, and S*G on
+    both sides of the prefill/decode threshold; the call takes the path
+    its S*G selects."""
+    q, k, v, qp, kp = _fa_inputs(B, S, T, K, G, hd, torch.bfloat16, dev,
+                                 B + S + T + hd, filled)
+    path = "decode" if S * G <= fa_ops.DECODE_ROWS else "prefill"
+    before = dict(fa_ops.PATH_LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, qp, kp, window, softcap)
+    torch.cuda.synchronize()
+    assert fa_ops.PATH_LAUNCHES[path] == before[path] + 1
+    want = fa_ref.flash_attention_ref(q, k, v, qp, kp, window, softcap)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FA_ATOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.parametrize("G", [2, 4], ids=["decode", "prefill"])
+def test_flash_bf16_empty_rows_give_zero(dev, G):
+    q, k, v, qp, kp = _fa_inputs(2, 8, 45, 2, G, 64, torch.bfloat16, dev, 3,
+                                 filled=20,
+                                 qpos=[-1, 0, 3, 12, 19, 30, 40, 100])
+    kp = torch.where(kp >= 0, kp + 4, kp)  # cached positions 4..23
+    got = fa_ops.flash_attention(q, k, v, qp, kp, 8, None)
+    want = fa_ref.flash_attention_ref(q, k, v, qp, kp, 8, None)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FA_ATOL[torch.bfloat16], rtol=0)
+    empty = ~fa_ref.attention_mask(qp, kp, 8).any(-1)
+    assert (got[:, empty] == 0).all() and (got[:, ~empty] != 0).any()
+
+
+@pytest.mark.parametrize("T", [97, 200, 544, 2000, 6000])
+def test_flash_split_kernel_matches_split_plain(dev, T):
+    """The split-KV decode against the plain split-KV algorithm at the
+    planner's chunk count (1, 2, 3, 11 and 32 chunks here), and against
+    the one-pass plain version."""
+    q, k, v, qp, kp = _fa_inputs(4, 1, T, 3, 4, 128, torch.bfloat16, dev,
+                                 T, T - 16)
+    n_split = fa_ops.plan_splits(q.shape, T)
+    got = fa_ops.flash_attention(q, k, v, qp, kp, 300, None)
+    split = fa_ref.flash_attention_split_ref(q, k, v, qp, kp, 300, None,
+                                             n_split)
+    torch.testing.assert_close(got.float(), split.float(),
+                               atol=FA_ATOL[torch.bfloat16], rtol=0)
+    want = fa_ref.flash_attention_ref(q, k, v, qp, kp, 300, None)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FA_ATOL[torch.bfloat16], rtol=0)
+
+
+def test_flash_decode_is_deterministic_and_batch_invariant(dev):
+    """Decode rows are bitwise repeatable, and a row's bits are the same
+    at B=1 as at B=8 (the chunk count reads T and S*G only)."""
+    q, k, v, qp, kp = _fa_inputs(8, 1, 544, 10, 4, 128, torch.bfloat16, dev,
+                                 7, 528)
+    got = fa_ops.flash_attention(q, k, v, qp, kp)
+    assert torch.equal(got, fa_ops.flash_attention(q, k, v, qp, kp))
+    for i in (0, 5):
+        one = fa_ops.flash_attention(q[i:i + 1].contiguous(),
+                                     k[i:i + 1].contiguous(),
+                                     v[i:i + 1].contiguous(), qp, kp)
+        assert torch.equal(one, got[i:i + 1])
+
+
 # ---------------------------------------------------------------------------
 # gathered multi-LoRA
 # ---------------------------------------------------------------------------
