@@ -28,7 +28,9 @@ Phases, each printing its lines (and its wall time) before the last:
               and its chunk count, fp32); error, device time (CUDA graph),
               eager call time, plain time, bound, library time (SDPA for
               attention), and each bf16 flash instantiation's dynamic
-              shared memory
+              shared memory; the projection's kernel launches per call
+              (the profiler, in a child process, for this and phase 10)
+              and cuBLAS's base product x @ W0 alone
   7. serve    ``serve.run_batched`` on phi3-medium-14b FULL (40 layers,
               bf16, random weights drawn on the card): B=8, P=512, 32
               decode steps, flash attention (40 prefill and 1,280 decode
@@ -46,7 +48,9 @@ Phases, each printing its lines (and its wall time) before the last:
  10. ssd kernel  the SSD chunked scan vs its plain version at the prefill
               step's shapes (mamba2-1.3b and hymba-1.5b heads, B=4, S=4096,
               bf16 and fp32) and an odd small shape, two calls bitwise
-              equal, and vs the token-by-token recurrence
+              equal, its path and launches per call, bf16 y's error beside
+              y's own rounding; with an initial state; and vs the
+              token-by-token recurrence
  11. mamba2   mamba2-1.3b FULL (48 layers, bf16, random weights drawn on the
               card): ``step_fns.make_prefill_step`` at B=4, S=4096 (one SSD
               launch per layer), then ``serve.run_batched`` at B=8, P=64, 32
@@ -472,6 +476,60 @@ def _bound(nbytes: int, flops: int, peak: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+LAUNCH_COUNTS = "--launch-counts"  # the child mode of launch_counts()
+
+
+def _launches_per_call(torch, fn) -> int:
+    """CUDA kernel launches one call of ``fn`` makes: the runtime's launch
+    calls the profiler records on the host (a copy or memset is not one),
+    after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunchKernel"))
+
+
+def launch_counts_child() -> None:
+    """The child mode: one JSON line {case: launches per call} for the
+    gathered projection's MD_CASES and the SSD scan's SSD_CASES."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.kernels.mdlora import ops as md_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    out = {}
+    for label, B, D, F, A, r, blocks, bf16 in MD_CASES:
+        x, w0, a, b, idx, mask = _md_inputs(torch, md_ops, B, D, F, A, r,
+                                            blocks, bf16, D + F)
+        out[f"mdlora {label}"] = _launches_per_call(
+            torch, lambda: md_ops.mdlora_matmul_multi(x, w0, a, b, idx, mask,
+                                                      2.0))
+    for label, b, s, h, p, n, Q, bf16 in SSD_CASES:
+        args = _ssd_inputs(torch, b, s, h, p, n, bf16, 0)
+        out[f"ssd {label}"] = _launches_per_call(
+            torch, lambda: ssd_ops.ssd(*args, Q))
+    print(json.dumps(out), flush=True)
+
+
+def launch_counts() -> dict:
+    """Launches per call of each serving-kernel case, counted by the
+    profiler in a child process: in this one, the profiler's hooks would
+    slow every host-bound phase after it."""
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          LAUNCH_COUNTS], capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        fail(f"launch counting failed ({res.returncode}):\n"
+             f"{res.stderr[-4000:]}")
+    counts = json.loads(res.stdout.strip().splitlines()[-1])
+    say(f"[launches] per call, profiled in a child process: {counts}")
+    return counts
+
+
 def _fa_inputs(torch, B, S, T, K, G, hd, filled, bf16, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = torch.bfloat16 if bf16 else torch.float32
@@ -571,7 +629,7 @@ def _md_inputs(torch, md_ops, B, D, F, A, r, blocks, bf16, seed):
     return x, w0, a, b, idx, mask
 
 
-def check_mdlora(torch, md_ops, md_ref) -> dict:
+def check_mdlora(torch, md_ops, md_ref, counts) -> dict:
     out = {}
     for label, B, D, F, A, r, blocks, bf16 in MD_CASES:
         masked = blocks is not None
@@ -595,6 +653,13 @@ def check_mdlora(torch, md_ops, md_ref) -> dict:
                  f"{err.max().item():.3e} exceeds {atol} + {rtol}*|plain|")
         ms, call_ms = time_ms(torch, kern, 200)
         plain_ms, _ = time_ms(torch, plain, 20)
+        # yardstick, not a port: cuBLAS's base product alone on the same
+        # (masked) input, x*m materialized outside the timing
+        xms = [(x if m is None else (x.float() * m).to(x.dtype), w)
+               for x, w, _, _, m in sets]
+        cublas_ms, _ = time_ms(torch, _rotating(xms, lambda x, w: x @ w),
+                               200)
+        per_call = counts[f"mdlora {label}"]
         used = int(idx.unique().numel())  # adapters this batch reads
         es = x.element_size()
         nbytes = (B * D + D * F + B * F) * es + 4 * used * r * (D + F) \
@@ -606,9 +671,13 @@ def check_mdlora(torch, md_ops, md_ref) -> dict:
             f"{'bf16' if bf16 else 'fp32'}: max abs err "
             f"{err.max().item():.2e} | device {ms * 1e3:.2f} us/call "
             f"(graph), eager call {call_ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, library n/a | bound "
-            f"{b_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB) = "
-            f"{b_ms / ms:.1%}")
+            f"{plain_ms * 1e3:.2f} us, library n/a (cuBLAS x @ W0 alone "
+            f"{cublas_ms * 1e3:.2f} us) | {per_call} kernel launch(es) per "
+            f"call | bound {b_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB)"
+            f" = {b_ms / ms:.1%}")
+        if bf16 and per_call != 1:
+            fail(f"mdlora_matmul_multi {label}: a bf16 call launched "
+                 f"{per_call} kernels, not 1")
         out[label] = dict(max_abs_err=err.max().item(), ms=ms,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                           library_ms=None)
@@ -628,7 +697,7 @@ def check_mdlora(torch, md_ops, md_ref) -> dict:
                      "the permuted rows bitwise")
             say("[mdlora] batch invariance: rows 0, 5, 15 alone and a "
                 "permuted batch equal the batch's rows bitwise")
-        del sets, kern, plain
+        del sets, kern, plain, xms
     return out
 
 
@@ -811,7 +880,38 @@ def _ssd_work(b, s, h, p, n, Q, es) -> tuple[int, int]:
     return nbytes, flops
 
 
-def check_ssd(torch, ssd_ops, ssd_ref, ssm) -> dict:
+def ssd_initial_state(torch, ssd_ops, ssd_ref, x, dt, A_log, Bm, Cm, Q,
+                      label) -> None:
+    """The kernel from a carried state against the plain version from the
+    same state, at the unchanged tolerance (S over |state| too)."""
+    b, s, h, p = x.shape
+    g = torch.Generator(device="cuda").manual_seed(s + h)
+    s0 = torch.randn((b, h, p, Bm.shape[-1]), device="cuda", generator=g)
+    y, fs = ssd_ops.ssd(x, dt, A_log, Bm, Cm, Q, initial_state=s0)
+    f = lambda t: t.float()  # noqa: E731
+    want = ssd_ref.ssd_ref(f(x), dt, A_log, f(Bm), f(Cm), Q, s0)
+    scale = ssd_ref.ssd_ref(f(x).abs(), dt, A_log, f(Bm).abs(), f(Cm).abs(),
+                            Q, s0.abs())
+    C = (torch.exp(A_log) * dt).reshape(b, s // Q, Q, h).sum(2).max()
+    sum_rtol = SSD_SUM_RTOL + SSD_CUM_ULPS * 2**-24 * C.item()
+    errs = []
+    for o, a, w, S, (atol, rtol) in zip(
+            ("y", "state"), (y, fs), want, scale,
+            (SSD_TOL[x.dtype == torch.bfloat16], SSD_TOL[False])):
+        err = (a.float() - w).abs()
+        if not torch.isfinite(a).all() or \
+                (err > atol + rtol * w.abs() + sum_rtol * S).any():
+            fail(f"ssd {label} with an initial state: {o} max abs err "
+                 f"{err.max().item():.3e}")
+        errs.append(f"{o} {err.max().item():.2e}")
+    first = (want[0] - ssd_ref.ssd_ref(f(x), dt, A_log, f(Bm), f(Cm),
+                                       Q)[0]).abs()[:, :Q].max().item()
+    say(f"[ssd] {label} from an initial state N(0, 1): max abs err "
+        f"{', '.join(errs)} (same tolerance); the state moves the first "
+        f"chunk's y by up to {first:.2e}")
+
+
+def check_ssd(torch, ssd_ops, ssd_ref, ssm, counts) -> dict:
     out = {}
     for label, b, s, h, p, n, Q, bf16 in SSD_CASES:
         x, dt, A_log, Bm, Cm = _ssd_inputs(torch, b, s, h, p, n, bf16,
@@ -844,6 +944,16 @@ def check_ssd(torch, ssd_ops, ssd_ref, ssm) -> dict:
             errs.append((o, err.max().item()))
             vs64.append(f"{o} kernel {(a.double() - e).abs().max().item():.2e}"
                         f" plain {(w.double() - e).abs().max().item():.2e}")
+        rel = ""
+        if bf16:  # y is stored in bf16: its own rounding is the yardstick
+            e16 = exact[0].to(torch.bfloat16).double()
+            top = want[0].abs().max().item()
+            w16 = want[0].to(torch.bfloat16).double()
+            rel = (f"; bf16 y: max abs err / max |y| {errs[0][1] / top:.2e} "
+                   f"(max |y| {top:.1f}), vs fp64 rounded to bf16: kernel "
+                   f"{(got[0].double() - e16).abs().max().item():.2e}, "
+                   "plain rounded to bf16 "
+                   f"{(w16 - e16).abs().max().item():.2e}")
         del exact
         sets = _copies(torch, (x, dt, Bm, Cm))
         kern = _rotating(sets, lambda x, dt, Bm, Cm: ssd_ops.ssd(
@@ -851,6 +961,9 @@ def check_ssd(torch, ssd_ops, ssd_ref, ssm) -> dict:
         plain = _rotating(sets, lambda x, dt, Bm, Cm: ssd_ref.ssd_ref(
             x, dt, A_log, Bm, Cm, Q))
         big = b * s > 1024
+        per_call = counts[f"ssd {label}"]
+        path = ("chunk walk (tensor cores)"
+                if ssd_ops.chunk_walk(Q, p, n, x.dtype) else "scores + scan")
         ms, call_ms = time_ms(torch, kern, 10 if big else 200)
         plain_ms, _ = time_ms(torch, plain, 3 if big else 20)
         nbytes, flops = _ssd_work(b, s, h, p, n, Q, x.element_size())
@@ -860,8 +973,8 @@ def check_ssd(torch, ssd_ops, ssd_ref, ssm) -> dict:
             + " ".join(f"{o} {e:.2e}" for o, e in errs)
             + f" (atol {SSD_TOL[bf16][0]} + {SSD_TOL[bf16][1]:.4g}*|plain"
             f" fp32| + {sum_rtol:.3g}*S, C {C.item():.0f}); vs the plain "
-            f"version in fp64: {', '.join(vs64)}; two calls bitwise equal "
-            f"| device "
+            f"version in fp64: {', '.join(vs64)}{rel}; two calls bitwise "
+            f"equal | {path}, {per_call} kernel launch(es) per call | device "
             f"{ms * 1e3:.2f} us/call (graph), eager call {call_ms * 1e3:.2f}"
             f" us, plain {plain_ms * 1e3:.2f} us, library n/a | bound "
             f"{b_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, "
@@ -870,6 +983,9 @@ def check_ssd(torch, ssd_ops, ssd_ref, ssm) -> dict:
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                           library_ms=None)
         del sets, kern, plain
+        if label in ("mamba2", "hymba"):
+            ssd_initial_state(torch, ssd_ops, ssd_ref, x, dt, A_log, Bm, Cm,
+                              Q, label)
     # the sequential recurrence, at a small shape
     x, dt, A_log, Bm, Cm = _ssd_inputs(torch, 1, 64, 2, 8, 4, False, 0)
     y, fs = ssd_ops.ssd(x, dt, A_log, Bm, Cm, 16)
@@ -1343,8 +1459,9 @@ def main() -> None:
     phase("check", reference_check, torch)
     fa_res = phase("serve kernels (flash)", check_flash, torch, fa_ops,
                    fa_ref)
+    counts = phase("launch counts", launch_counts)
     md_res = phase("serve kernels (mdlora)", check_mdlora, torch, md_ops,
-                   md_ref)
+                   md_ref, counts)
     results["flash_attention"] = dict(path="decode", **fa_res["decode"])
     results["flash_attention_prefill"] = dict(path="prefill",
                                               **fa_res["prefill"])
@@ -1373,7 +1490,7 @@ def main() -> None:
     phase("serve check", serve_check, torch, serve, serving_engine, api,
           kops, tree_map, full)
     results["ssd"] = phase("ssd kernel", check_ssd, torch, ssd_ops, ssd_ref,
-                           ssm)["mamba2"]
+                           ssm, counts)["mamba2"]
     launches["ssd"] = 0
     for arch in ("mamba2-1.3b", "hymba-1.5b"):
         cfg = dataclasses.replace(get_arch(arch).FULL, attn_impl="pallas")
@@ -1412,4 +1529,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == [LAUNCH_COUNTS]:
+        launch_counts_child()
+    else:
+        main()

@@ -4,7 +4,8 @@ they take:
 * ``mdlora_matmul``       one adapter for every row (the Backbone 2 fusion
   layer), kernel ``csrc/mdlora.cu``; its gradient is ``autograd.py``;
 * ``mdlora_matmul_multi`` one adapter per row, gathered (serving), kernel
-  ``csrc/mdlora_multi.cu``.
+  ``csrc/mdlora_multi.cu``: fp32 in two launches, bf16 in one, whose D
+  split comes from ``plan_multi`` (a function of D, F and the SM count).
 
 Dispatch is by the tensor's device, with no fallback: a CPU tensor goes to
 the plain version in ``ref.py``; a CUDA tensor launches the CUDA kernel or
@@ -29,6 +30,11 @@ LAUNCHES = {"mdlora_matmul": 0, "mdlora_matmul_multi": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the bf16 kernel's geometry (checked against the source's when it loads):
+# columns per F tile, d per ring stage, d per bottleneck split, resident
+# blocks per SM
+TILE_F, STAGE_K, U_LEN, BLOCKS_PER_SM = 64, 64, 128, 2
+MIN_STAGES = 4  # per split, where D allows: fewer partials to add
 
 
 def reset_launches() -> None:
@@ -63,9 +69,18 @@ def _lib() -> ctypes.CDLL:
     lib = runtime.load_library(SOURCE)
     lib.mdlora_multi_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.mdlora_multi_plan.restype = None
+    lib.mdlora_multi_bf16_geometry.argtypes = [ctypes.POINTER(_I)]
+    lib.mdlora_multi_bf16_geometry.restype = None
     lib.mdlora_multi.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I,
-                                 _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                 _P, _P]
     lib.mdlora_multi.restype = _I
+    geometry = (_I * 4)()
+    lib.mdlora_multi_bf16_geometry(geometry)
+    want = (TILE_F, STAGE_K, U_LEN, BLOCKS_PER_SM)
+    if tuple(geometry) != want:
+        raise RuntimeError(f"{SOURCE.name} has geometry {tuple(geometry)}, "
+                           f"the planner {want}")
     return lib
 
 
@@ -144,12 +159,48 @@ def mdlora_matmul(x, w0, a, b, row_mask, scale: float = 2.0):
 
 @functools.cache
 def _plan(D: int, F: int, r: int, sms: int) -> tuple[int, int]:
-    """-> (D splits of the base product, D splits of the bottleneck): a
+    """fp32 -> (D splits of the base product, D splits of the bottleneck): a
     function of the shape and the card, never of the batch, so a row's
     result does not depend on the rows beside it."""
     out = (ctypes.c_int * 2)()
     _lib().mdlora_multi_plan(D, F, r, sms, out)
     return out[0], out[1]
+
+
+def plan_multi(D: int, F: int, sms: int) -> tuple[int, int, int, int]:
+    """bf16 -> (L, sd, su, ug): the bottleneck's split count su = ceil(D /
+    U_LEN) and rows per bottleneck block ug; the base product's D split
+    length L (a multiple of STAGE_K, at least MIN_STAGES stages where D
+    allows) and count sd = ceil(D / L), chosen so that the su + ceil(F /
+    TILE_F) x sd blocks of 16 rows fit the card at once (BLOCKS_PER_SM per
+    SM) where such splits allow it; ug = 4 when four times the bottleneck
+    blocks still fit (shorter staging for small projections), else 16. It
+    never reads the batch, so a row's result does not depend on the rows
+    beside it."""
+    n_ft, su = -(-F // TILE_F), -(-D // U_LEN)
+    slots = BLOCKS_PER_SM * sms
+    want = max(1, (slots - su) // n_ft)
+    L = -(-D // want)
+    L = max(-(-L // STAGE_K) * STAGE_K, min(MIN_STAGES * STAGE_K,
+                                             -(-D // STAGE_K) * STAGE_K))
+    sd = -(-D // L)
+    return L, sd, su, 4 if 4 * su + n_ft * sd <= slots else 16
+
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The bf16 kernel's counters on ``dev`` (one per F tile, then the
+    bottleneck's, the block tickets and the finished tiles): int32,
+    zero between calls (the last block of a tile zeroes its own), shared by
+    the calls of a stream, which run in order; grown when a wider F needs
+    more."""
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=dev)
+    return c
 
 
 def mdlora_matmul_multi(x, w0, a, b, adapter_idx, row_mask=None,
@@ -186,8 +237,12 @@ def mdlora_matmul_multi(x, w0, a, b, adapter_idx, row_mask=None,
     if row_mask is not None:
         runtime.check_cuda_tensor("row_mask", row_mask, torch.float32,
                                   (B, D), dev)
-    sd, su = _plan(D, F, r, torch.cuda.get_device_properties(dev)
-                   .multi_processor_count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if x.dtype == torch.bfloat16:
+        L, sd, su, ug = plan_multi(D, F, sms)
+        counters = _counters(dev, -(-F // TILE_F) + 3).data_ptr()
+    else:
+        (sd, su), L, ug, counters = _plan(D, F, r, sms), 0, 0, None
     ws = torch.empty(sd * B * F + su * B * r, dtype=torch.float32,
                      device=dev)
     out = torch.empty((B, F), dtype=x.dtype, device=dev)
@@ -197,8 +252,8 @@ def mdlora_matmul_multi(x, w0, a, b, adapter_idx, row_mask=None,
             x.data_ptr(), w0.data_ptr(), a.data_ptr(), b.data_ptr(),
             adapter_idx.data_ptr(),
             None if row_mask is None else row_mask.data_ptr(), float(scale),
-            B, D, F, A, r, _DTYPES[x.dtype], sd, su, ws.data_ptr(),
-            out.data_ptr(), stream)
+            B, D, F, A, r, _DTYPES[x.dtype], L, sd, su, ug, ws.data_ptr(),
+            counters, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mdlora_matmul_multi: CUDA launch failed with "
                            f"error {err}")

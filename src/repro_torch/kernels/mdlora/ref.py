@@ -44,3 +44,26 @@ def mdlora_matmul_multi_ref(x, w0, a, b, adapter_idx, row_mask, scale):
     u = torch.einsum("bd,bdr->br", xm, a[idx].float())
     lora = torch.einsum("br,brf->bf", u, b[idx].float()) * scale
     return (xm @ w0.float() + lora).to(x.dtype)
+
+
+def mdlora_matmul_multi_split_ref(x, w0, a, b, adapter_idx, row_mask, scale,
+                                  split: int, u_split: int):
+    """``mdlora_matmul_multi_ref`` in the order of the bf16 kernel's sums:
+    x*m rounded once to x's dtype for the base product, which is summed
+    over D splits of ``split`` rows each (fp32 partials, added in split
+    order); the bottleneck u from the fp32 x*m, summed over splits of
+    ``u_split`` rows in order; then y = base + scale * u @ b[idx], cast to
+    x's dtype. ``split`` and ``u_split`` come from ``ops.plan_multi`` and
+    ``ops.U_LEN``."""
+    xm = x.float() if row_mask is None else x.float() * row_mask.float()
+    xb = xm.to(x.dtype).float()
+    w = w0.float()
+    ag = a[adapter_idx.long()].float()
+    D = x.shape[1]
+    base = sum(xb[:, d:d + split] @ w[d:d + split]
+               for d in range(0, D, split))
+    u = sum(torch.einsum("bd,bdr->br", xm[:, d:d + u_split],
+                         ag[:, d:d + u_split])
+            for d in range(0, D, u_split))
+    lora = torch.einsum("br,brf->bf", u, b[adapter_idx.long()].float())
+    return (base + scale * lora).to(x.dtype)

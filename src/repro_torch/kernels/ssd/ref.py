@@ -75,3 +75,59 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
 
     y = (y_diag + y_off).reshape(b, s, h, p)
     return y.to(x.dtype), state
+
+
+def bf16_hi_lo(t: torch.Tensor) -> torch.Tensor:
+    """t as the bf16 kernel feeds it to the tensor cores: hi + lo, each
+    rounded to bf16 (to 2^-16 of t), summed in fp32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def ssd_walk_ref(x, dt, A_log, Bm, Cm, chunk: int, initial_state=None,
+                 p_block: int = 32, hi_lo: bool = False) -> tuple:
+    """``ssd_ref`` in the order of the bf16 kernel's chunk walk: p in
+    slices of ``p_block`` columns, each walking the chunks with its own
+    state; the log-decays' running sums in fp64 (each difference rounded to
+    fp32 once); dt folded into the derived operands, M = (C Bᵀ ⊙
+    exp(cum_i - cum_j)) dt_j (j <= i) against x, and x w with w_j = dt_j
+    exp(cum_last - cum_j) against B; y = M x + exp(cum) C stateᵀ. With
+    ``hi_lo`` each derived operand and the carried state in C stateᵀ pass
+    through ``bf16_hi_lo``, as the kernel's products read them.
+    -> (y in x's dtype, final_state fp32)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    if s % chunk != 0:
+        raise ValueError(f"seq {s} not divisible by ssd chunk {chunk}")
+    rnd = bf16_hi_lo if hi_lo else (lambda t: t)
+    f = torch.float32
+    xf, Bf, Cf, dtf = x.to(f), Bm.to(f), Cm.to(f), dt.to(f)
+    a = -torch.exp(A_log.to(f)) * dtf  # [b, s, h], fp32 as the kernel
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))[None, :, :, None]
+    y = torch.empty((b, s, h, p), dtype=f, device=x.device)
+    final = torch.empty((b, h, p, n), dtype=f, device=x.device)
+    for q0 in range(0, p, p_block):
+        q1 = min(p, q0 + p_block)
+        state = (torch.zeros((b, h, q1 - q0, n), dtype=f, device=x.device)
+                 if initial_state is None
+                 else initial_state[:, :, q0:q1].to(f))
+        for c in range(s // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            cum = torch.cumsum(a[:, sl].double(), dim=1)  # [b, Q, h]
+            last = cum[:, -1]  # [b, h]
+            G = torch.einsum("bin,bjn->bij", Cf[:, sl], Bf[:, sl])
+            diff = (cum[:, :, None] - cum[:, None]).float()  # [b, i, j, h]
+            L = torch.exp(diff.masked_fill(~tril, float("-inf")))
+            M = G[..., None] * L * dtf[:, sl][:, None]
+            xs = xf[:, sl, :, q0:q1]  # [b, Q, h, q]
+            y_diag = torch.einsum("bijh,bjhq->bihq", rnd(M), xs)
+            y_off = torch.einsum("bin,bhqn->bihq", Cf[:, sl], rnd(state))
+            y[:, sl, :, q0:q1] = y_diag + \
+                torch.exp(cum.float())[..., None] * y_off
+            w = dtf[:, sl] * torch.exp((last[:, None] - cum).float())
+            state = state * torch.exp(last.float())[..., None, None] + \
+                torch.einsum("bjhq,bjn->bhqn", rnd(xs * w[..., None]),
+                             Bf[:, sl])
+        final[:, :, q0:q1] = state
+    return y.to(x.dtype), final

@@ -573,9 +573,9 @@ def test_ssd_kernel_is_deterministic(dev, dtype):
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x, dt, A_log, Bm, Cm = _ssd_inputs(1, 64, 2, 8, 4, torch.float32, dev, 0)
-    with pytest.raises(ValueError, match="zero state"):
+    with pytest.raises(ValueError, match="shape"):
         ssd_ops.ssd(x, dt, A_log, Bm, Cm, 16,
-                    initial_state=torch.zeros((1, 2, 8, 4), device=dev))
+                    initial_state=torch.zeros((1, 2, 4, 8), device=dev))
     with pytest.raises(ValueError, match="not divisible"):
         ssd_ops.ssd(x, dt, A_log, Bm, Cm, 24)
     with pytest.raises(ValueError, match="is on"):
@@ -591,3 +591,121 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     cpu = [t.cpu() for t in (x, dt, A_log, Bm, Cm)]
     ssd_ops.ssd(*cpu, 16)
     assert ssd_ops.LAUNCHES["ssd"] == before
+
+
+# the bf16 redesigns: one launch per call, their sum orders, initial state
+
+
+def _launches(fn):
+    """(kernel launches of one call of ``fn`` -- the runtime's launch calls
+    the profiler records on the host -- and the names of the device kernels
+    it recorded), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.key.startswith("cudaLaunchKernel"))
+    return n, [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("B,D,F", [(16, 5120, 5120), (33, 300, 77)])
+def test_mdlora_bf16_call_is_one_launch(dev, B, D, F):
+    x, w0, a, b, idx, mask = _md_inputs(B, D, F, 8, 4, torch.bfloat16, dev, 3)
+    n, names = _launches(
+        lambda: md_ops.mdlora_matmul_multi(x, w0, a, b, idx, mask, 2.0))
+    assert n == 1 and all("bf16_kernel" in k for k in names), names
+    xf, wf = x.float(), w0.float()
+    n, names = _launches(
+        lambda: md_ops.mdlora_matmul_multi(xf, wf, a, b, idx, mask, 2.0))
+    assert n == 2, names
+
+
+@pytest.mark.parametrize("B,D,F", [(16, 5120, 1280), (33, 512, 96),
+                                   (5, 300, 77), (16, 4800, 1600)])
+def test_mdlora_bf16_kernel_matches_its_split_plain(dev, B, D, F):
+    """Against the plain version in the kernel's own split order (x*m
+    rounded to bf16 once, fp32 partials per split); a fractional mask."""
+    x, w0, a, b, idx, mask = _md_inputs(B, D, F, 8, 6, torch.bfloat16, dev,
+                                        B + F)
+    L, *_ = md_ops.plan_multi(
+        D, F, torch.cuda.get_device_properties(dev).multi_processor_count)
+    for m in (mask, mask * 0.37 + 0.2):
+        got = md_ops.mdlora_matmul_multi(x, w0, a, b, idx, m, 2.0)
+        want = md_ref.mdlora_matmul_multi_split_ref(x, w0, a, b, idx, m,
+                                                    2.0, L, md_ops.U_LEN)
+        atol, rtol = MD_TOL[torch.bfloat16]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(
+            got.float(), md_ref.mdlora_matmul_multi_ref(
+                x, w0, a, b, idx, m, 2.0).float(), atol=atol, rtol=rtol)
+
+
+def test_mdlora_bf16_calls_leave_the_counters_zeroed(dev):
+    """Alternating shapes reuse the per-tile arrival counters: each call
+    leaves them zeroed, so repeated calls agree bitwise."""
+    big = _md_inputs(16, 5120, 5120, 8, 16, torch.bfloat16, dev, 1)
+    small = _md_inputs(3, 640, 200, 4, 2, torch.bfloat16, dev, 2)
+    first = [md_ops.mdlora_matmul_multi(*big, 2.0),
+             md_ops.mdlora_matmul_multi(*small, 2.0)]
+    for _ in range(3):
+        assert torch.equal(md_ops.mdlora_matmul_multi(*big, 2.0), first[0])
+        assert torch.equal(md_ops.mdlora_matmul_multi(*small, 2.0), first[1])
+    torch.cuda.synchronize()
+    assert int(md_ops._COUNTERS[big[0].device].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_bf16_kernel_matches_its_walk_plain(dev, b, s, h, p, n, chunk):
+    """The bf16 chunk walk against the plain version in its own order
+    (folded dt, bf16 hi + lo operands) on the same bf16 values: only the
+    fp32 sums' order and y's bf16 rounding are left."""
+    x, dt, A_log, Bm, Cm = _ssd_inputs(b, s, h, p, n, torch.bfloat16, dev,
+                                       b + s + h + p + n)
+    assert ssd_ops.chunk_walk(chunk, p, n, torch.bfloat16)
+    y, fs = ssd_ops.ssd(x, dt, A_log, Bm, Cm, chunk)
+    f = lambda t: t.float()  # noqa: E731
+    yw, fw = ssd_ref.ssd_walk_ref(f(x), dt, A_log, f(Bm), f(Cm), chunk,
+                                  hi_lo=True)
+    _, (ys, fsum), sum_rtol = _ssd_plain(x, dt, A_log, Bm, Cm, chunk)
+    _assert_ssd_close(y, yw, ys, sum_rtol, *SSD_TOL[torch.bfloat16])
+    _assert_ssd_close(fs, fw, fsum, sum_rtol, *SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 4, 16, 8, 16), (1, 30, 5, 6, 5, 10), (2, 256, 64, 64, 128, 64),
+    (2, 256, 50, 64, 16, 64)])
+def test_ssd_kernel_takes_an_initial_state(dev, dtype, b, s, h, p, n, chunk):
+    """A carried state (slow decays keep it in y to the last chunk) against
+    the plain version with the same state."""
+    x, dt, A_log, Bm, Cm = _ssd_inputs(b, s, h, p, n, dtype, dev, 5 * s + h)
+    A_log = A_log - 3.0
+    s0 = torch.as_tensor(np.random.default_rng(h).normal(
+        size=(b, h, p, n)).astype(np.float32), device=dev)
+    y, fs = ssd_ops.ssd(x, dt, A_log, Bm, Cm, chunk, initial_state=s0)
+    y0, _ = ssd_ops.ssd(x, dt, A_log, Bm, Cm, chunk)
+    f = lambda t: t.float()  # noqa: E731
+    yw, fw = ssd_ref.ssd_ref(f(x), dt, A_log, f(Bm), f(Cm), chunk, s0)
+    ys, fsum = ssd_ref.ssd_ref(f(x).abs(), dt, A_log, f(Bm).abs(),
+                               f(Cm).abs(), chunk, s0.abs())
+    C = (torch.exp(A_log) * dt).reshape(b, s // chunk, chunk, h).sum(2)
+    sum_rtol = SSD_SUM_RTOL + SSD_CUM_ULPS * 2**-24 * C.max().item()
+    _assert_ssd_close(y, yw, ys, sum_rtol, *SSD_TOL[dtype])
+    _assert_ssd_close(fs, fw, fsum, sum_rtol, *SSD_TOL[torch.float32])
+    assert (y.float() - y0.float()).abs()[:, -chunk:].max() > 1e-2
+
+
+def test_ssd_bf16_call_is_one_launch(dev):
+    args = _ssd_inputs(2, 256, 8, 64, 128, torch.bfloat16, dev, 0)
+    n, names = _launches(lambda: ssd_ops.ssd(*args, 64))
+    assert n == 1 and all("chunk_kernel" in k for k in names), names
+    f32 = [t.float() for t in args]
+    n, names = _launches(lambda: ssd_ops.ssd(*f32, 64))
+    assert n == 2, names
