@@ -10,7 +10,11 @@ Phases, each printing its lines (and its wall time) before the last:
               build time and ptxas register/smem lines
   3. kernels  each cohort-agg kernel vs its plain version (ref.py) at the
               path shape, ragged shapes, an empty cohort and fleet scale;
-              max abs error, CUDA-event time per call, the byte/flop bound
+              max abs error, CUDA-event time per call, the byte/flop bound;
+              the int8 kernel's plan (rows per tile, lanes, splits) and its
+              launches per call (asserted 1; the fp32 kernel's 2), counted
+              by the profiler in a child process (``--launch-counts``, run
+              right after the build, as for phases 6, 10 and 14)
   4. main     the asynchronous RELIEF runtime (AsyncFedRun) on full-width
               PAMAP2 Backbone 1, paper fleet (3,3,2), 100x compute gap,
               K=4, a=0.5, through the entry point's ``build``: one cold-start
@@ -67,9 +71,14 @@ Phases, each printing its lines (and its wall time) before the last:
               layer) vs its plain version at the training path's shape (8
               clients x 32 rows, 112 -> 128, r 8, the fleet's masks, W0
               shared), an evaluation batch, a ragged shape and 1024 clients;
-              two calls bitwise equal; the autograd Function's vmap(grad) vs
-              the plain expression's; error, device time, eager call time,
-              plain time, bound and cuBLAS's base product alone
+              two calls bitwise equal, one launch per call (asserted); the
+              autograd Function's vmap(grad) vs the plain expression's;
+              error, device time, eager call time, plain time, bound and
+              cuBLAS's base product alone. Each case names its path: fp32
+              via 3xTF32 mma.sync, bf16 via mma.sync; the operations bound
+              of an fp32 call counts its products three times over the TF32
+              tensor-core peak (the fp32 peak of the CUDA cores no longer
+              bounds it), beside the unchanged bytes
  15. sync     the synchronous RELIEF round (FedRun) on full-width PAMAP2
               Backbone 2, paper fleet (3,3,2), through
               ``train_relief_har.build``: three rounds of relief and three of
@@ -104,6 +113,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 # Tolerance per output element: |kernel - plain| <= ATOL + RTOL*|plain| +
 # SUM_RTOL*S, where S is the same reduction over absolute values. Both sides
 # are fp32 sums over N clients taken in different orders; their difference
@@ -227,8 +237,9 @@ def bound(kernel: str, N: int, D: int, r: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(torch, ops, ref) -> dict:
+def check_kernels(torch, ops, ref, counts) -> dict:
     results = {k: {} for k in KERNELS}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, (N, D, r), empty in CASES:
         g = torch.Generator(device="cuda").manual_seed(N * 7 + D * 3 + r)
         kw = dict(device="cuda", generator=g)
@@ -273,8 +284,20 @@ def check_kernels(torch, ops, ref) -> dict:
                 plain_ms, plain_call = time_ms(torch, plain,
                                                5 if label == "fleet" else iters)
                 b_ms, by = bound(name, N, D, r)
+                n_launch = counts[f"{name} {label} {(N, D, r)}"]
+                if name == "cohort_agg_divergence":
+                    plan = f"splits {ops.split_count(N, D, r, x.device)}"
+                    want_launch = 2
+                else:
+                    p = ops.plan_quant(N, D, r, sms)
+                    plan = (f"plan {p.rows} rows x {p.tiles(D)} tiles, "
+                            f"{p.lanes} lanes, {p.splits} splits")
+                    want_launch = 1
+                if n_launch != want_launch:
+                    fail(f"{name} {label}: {n_launch} launches per call, "
+                         f"expected {want_launch}")
                 say(f"[kernel] {name}{tag} {label} N,D,r={N},{D},{r} "
-                    f"splits {ops.split_count(N, D, r, x.device)}: "
+                    f"{plan}, {n_launch} launch(es) per call: "
                     + " ".join(f"{o} {e:.2e}" for o, e in errs)
                     + f" | device {ms * 1e3:.2f} us/call (plain "
                     f"{plain_ms * 1e3:.2f} us), bound {b_ms * 1e3:.3f} us "
@@ -496,12 +519,30 @@ def _launches_per_call(torch, fn) -> int:
 
 def launch_counts_child() -> None:
     """The child mode: one JSON line {case: launches per call} for the
+    cohort-agg kernels' CASES, the fused projection's FUSED_CASES, the
     gathered projection's MD_CASES and the SSD scan's SSD_CASES."""
     sys.path.insert(0, str(SRC))
     import torch
+    from repro_torch.kernels.cohort_agg import ops
     from repro_torch.kernels.mdlora import ops as md_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     out = {}
+    for label, (N, D, r), _ in CASES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        kw = dict(device="cuda", generator=g)
+        W, C = torch.rand((N, D), **kw), torch.ones((N, D), device="cuda")
+        q = torch.randint(-127, 128, (N, D, r), dtype=torch.int8, **kw)
+        s, st = torch.rand((N,), **kw), torch.ones((N,), device="cuda")
+        x = q.float()
+        out[f"cohort_agg_divergence {label} {(N, D, r)}"] = _launches_per_call(
+            torch, lambda: ops.cohort_agg_divergence(x, W, C))
+        out[f"cohort_agg_divergence_quant {label} {(N, D, r)}"] = \
+            _launches_per_call(torch, lambda: ops.cohort_agg_divergence_quant(
+                q, s, W, C, st, 0.5))
+    for label, K, T, D, F, r, share, bf16 in FUSED_CASES:
+        args = _fused_inputs(torch, md_ops, K, T, D, F, r, share, bf16, 0)
+        out[f"fused {label}"] = _launches_per_call(
+            torch, lambda: md_ops.mdlora_matmul(*args, 2.0))
     for label, B, D, F, A, r, blocks, bf16 in MD_CASES:
         x, w0, a, b, idx, mask = _md_inputs(torch, md_ops, B, D, F, A, r,
                                             blocks, bf16, D + F)
@@ -516,7 +557,7 @@ def launch_counts_child() -> None:
 
 
 def launch_counts() -> dict:
-    """Launches per call of each serving-kernel case, counted by the
+    """Launches per call of each kernel case, counted by the
     profiler in a child process: in this one, the profiler's hooks would
     slow every host-bound phase after it."""
     res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -1218,7 +1259,15 @@ def _fused_work(K, T, D, F, r, share, es) -> tuple[int, int]:
     return nbytes, flops
 
 
-def check_fused(torch, md_ops, md_ref, fused_block_lora) -> dict:
+def _fused_bound(nbytes: int, flops: int, bf16: bool) -> tuple[float, str]:
+    """fp32 runs on the tensor cores as 3xTF32: three TF32 products per
+    product, over the TF32 peak; bf16 one product over the bf16 peak."""
+    if bf16:
+        return _bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+
+
+def check_fused(torch, md_ops, md_ref, fused_block_lora, counts) -> dict:
     out = {}
     for label, K, T, D, F, r, share, bf16 in FUSED_CASES:
         x, w0, a, b, mask = _fused_inputs(torch, md_ops, K, T, D, F, r,
@@ -1248,9 +1297,14 @@ def check_fused(torch, md_ops, md_ref, fused_block_lora) -> dict:
         plain_ms, plain_call = time_ms(torch, plain, iters)
         base_ms, _ = time_ms(torch, base, iters)
         nbytes, flops = _fused_work(K, T, D, F, r, share, x.element_size())
-        b_ms, by = _bound(nbytes, flops, _flops_peak(torch, x))
+        b_ms, by = _fused_bound(nbytes, flops, bf16)
+        n_launch = counts[f"fused {label}"]
+        if n_launch != 1:
+            fail(f"mdlora_matmul {label}: {n_launch} launches per call")
         say(f"[fused] {label} K={K} T={T} D={D} F={F} r={r} shared "
-            f"{'/'.join(share) or 'none'} {'bf16' if bf16 else 'fp32'}: max "
+            f"{'/'.join(share) or 'none'} "
+            f"{'bf16 via mma.sync' if bf16 else 'fp32 via 3xTF32 mma.sync'}"
+            f", {n_launch} launch per call: max "
             f"abs err {err.max().item():.2e} (atol {atol} + {rtol:.4g}"
             f"*|plain|), two calls bitwise equal | device "
             f"{ms * 1e3:.2f} us/call (graph), eager call {call_ms * 1e3:.2f}"
@@ -1454,12 +1508,12 @@ def main() -> None:
                "ssd": ssd_ops.SOURCE,
                "mdlora_matmul": md_ops.FUSED_SOURCE}
     phase("build", build_kernels, runtime, sorted(set(sources.values())))
-    results = phase("kernels", check_kernels, torch, ops, ref)
+    counts = phase("launch counts", launch_counts)
+    results = phase("kernels", check_kernels, torch, ops, ref, counts)
     launches = phase("main", main_path, torch, ops, train_async_har, 12)
     phase("check", reference_check, torch)
     fa_res = phase("serve kernels (flash)", check_flash, torch, fa_ops,
                    fa_ref)
-    counts = phase("launch counts", launch_counts)
     md_res = phase("serve kernels (mdlora)", check_mdlora, torch, md_ops,
                    md_ref, counts)
     results["flash_attention"] = dict(path="decode", **fa_res["decode"])
@@ -1509,7 +1563,8 @@ def main() -> None:
     phase("recurrent check", recurrent_check, torch, serve, serving_engine,
           step_fns, api, kops, tree_map, get_arch)
     results["mdlora_matmul"] = phase("fused kernel", check_fused, torch,
-                                     md_ops, md_ref, fused_block_lora)["path"]
+                                     md_ops, md_ref, fused_block_lora,
+                                     counts)["path"]
     launches["mdlora_matmul"] = phase("sync", sync_path, torch, md_ops,
                                       train_relief_har, profile_serve)
     phase("sync check", sync_check, torch, md_ops, train_relief_har,

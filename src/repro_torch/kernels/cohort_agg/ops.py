@@ -2,15 +2,23 @@
 
 Dispatch is by the tensor's device, with no fallback: a CPU tensor goes to
 the plain version in ``ref.py``; a CUDA tensor launches the CUDA kernel in
-``csrc/cohort_agg.cu`` or raises. ``LAUNCHES`` counts kernel launches per op
-(never the plain version), so a run can show its flushes went through the
-kernel.
+``csrc/cohort_agg.cu`` or raises. ``LAUNCHES`` counts calls that launched a
+kernel, per op (never the plain version), so a run can show its flushes
+went through the kernel.
+
+* ``cohort_agg_divergence`` (fp32 deltas): two launches, the client split
+  from ``split_count``.
+* ``cohort_agg_divergence_quant`` (int8 codes): one launch, planned by
+  ``plan_quant`` (a function of the shape and the SM count only, so results
+  are bitwise repeatable on one card).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +32,11 @@ BLOCKS_PER_SM = 4
 MIN_CLIENTS = 8
 
 LAUNCHES = {"cohort_agg_divergence": 0, "cohort_agg_divergence_quant": 0}
+# the int8 kernel's geometry (checked against the source's when it loads):
+# threads per block, resident blocks per SM; at most MAX_LANES client lanes
+# and at least MIN_LANE_CLIENTS clients per lane and split
+QUANT_THREADS, QUANT_BLOCKS_PER_SM = 256, 4
+MAX_LANES, MIN_LANE_CLIENTS = 8, 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,8 +56,17 @@ def _lib() -> ctypes.CDLL:
                                    _P, _P]
     lib.cohort_agg_f32.restype = _I
     lib.cohort_agg_i8.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, _I, _I,
-                                  _I, _I, _P, _P, _P, _P, _P, _P]
+                                  _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                  _P]
     lib.cohort_agg_i8.restype = _I
+    lib.cohort_agg_quant_geometry.argtypes = [ctypes.POINTER(_I)]
+    lib.cohort_agg_quant_geometry.restype = None
+    geometry = (_I * 2)()
+    lib.cohort_agg_quant_geometry(geometry)
+    want = (QUANT_THREADS, QUANT_BLOCKS_PER_SM)
+    if tuple(geometry) != want:
+        raise RuntimeError(f"{SOURCE.name} has int8 geometry "
+                           f"{tuple(geometry)}, the planner {want}")
     return lib
 
 
@@ -55,6 +77,56 @@ def split_count(N: int, D: int, r: int, device: torch.device) -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-N // MIN_CLIENTS), -(-BLOCKS_PER_SM * sms // tiles),
                       65535))
+
+
+class QuantPlan(NamedTuple):
+    vec: int     # codes per span: 4 (one char4 load) when r % 4 == 0, else 1
+    rows: int    # whole rows per element tile
+    lanes: int   # client lanes per block (QUANT_THREADS / lanes span threads)
+    splits: int  # client splits S, each a contiguous range of clients
+
+    def tiles(self, D: int) -> int:
+        return -(-D // self.rows)
+
+    def blocks(self, D: int) -> int:
+        return self.tiles(D) * self.splits
+
+
+def plan_quant(N: int, D: int, r: int, sms: int) -> QuantPlan:
+    """The int8 kernel's plan, from the shape and the SM count only.
+
+    Span threads: the least power of two (at least a warp) that covers one
+    row's spans, at most the block; the rest of the block is client lanes,
+    no more than N needs. A tile is as many whole rows as the span threads
+    cover (one row, walked in passes, when it is wider). Splits fill the
+    card's resident slots (QUANT_BLOCKS_PER_SM per SM) in one wave, each
+    lane keeping at least MIN_LANE_CLIENTS clients per split.
+    """
+    vec = 4 if r % 4 == 0 else 1
+    sr = r // vec
+    lanes = min(MAX_LANES, 1 << max(0, math.ceil(math.log2(N))))
+    while lanes > 1 and QUANT_THREADS // lanes < sr:
+        lanes //= 2
+    ts = QUANT_THREADS // lanes
+    rows = max(1, min(D, ts // sr))
+    tiles = -(-D // rows)
+    splits = max(1, min(-(-N // (lanes * MIN_LANE_CLIENTS)),
+                        QUANT_BLOCKS_PER_SM * sms // tiles))
+    return QuantPlan(vec, rows, lanes, splits)
+
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The int8 kernel's tile counters on ``dev``: int32, zero between calls
+    (a tile's last block zeroes its own), shared by the calls of a stream,
+    which run in order; grown when a call has more tiles."""
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=dev)
+    return c
 
 
 def _check(x: torch.Tensor, x_dtype: torch.dtype, W: torch.Tensor,
@@ -126,14 +198,30 @@ def cohort_agg_divergence_quant(q, scales, W, C, staleness,
                               q.device)
     runtime.check_cuda_tensor("staleness", staleness, torch.float32, (N,),
                               q.device)
-    S, ws, agg, sq, mean, cnt = _outputs(N, D, r, q.device)
-    with torch.cuda.device(q.device):
+    dev = q.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = plan_quant(N, D, r, sms)
+    if plan.vec == 4 and q.data_ptr() % 4:
+        raise ValueError("q must be 4-byte aligned for its char4 loads")
+    S = plan.splits
+    ws = counters = None
+    if S > 1:
+        ws = torch.empty(S * 2 * (D * r + D), dtype=torch.float32,
+                         device=dev)
+        counters = _counters(dev, plan.tiles(D))
+    agg = torch.empty((D, r), dtype=torch.float32, device=dev)
+    mean = torch.empty((D, r), dtype=torch.float32, device=dev)
+    sq = torch.empty((D,), dtype=torch.float32, device=dev)
+    cnt = torch.empty((D,), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().cohort_agg_i8(
             q.data_ptr(), scales.data_ptr(), W.data_ptr(), C.data_ptr(),
-            staleness.data_ptr(), float(exponent), N, D, r, S,
-            ws.data_ptr(), agg.data_ptr(), sq.data_ptr(), mean.data_ptr(),
-            cnt.data_ptr(), stream)
+            staleness.data_ptr(), float(exponent), N, D, r, plan.vec,
+            plan.rows, plan.lanes, S, ptr(ws), ptr(counters),
+            agg.data_ptr(), sq.data_ptr(), mean.data_ptr(), cnt.data_ptr(),
+            stream)
     _raise_on(err, "cohort_agg_divergence_quant")
     LAUNCHES["cohort_agg_divergence_quant"] += 1
     return agg, sq, mean, cnt

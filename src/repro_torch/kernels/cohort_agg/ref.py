@@ -54,3 +54,41 @@ def cohort_agg_divergence_quant_ref(q, scales, W, C, staleness,
     mean = (torch.einsum("nd,ndr->dr", c * s[:, None], q32)
             / cnt.clamp(min=1.0)[:, None])
     return agg, sqsum, mean, cnt
+
+
+def cohort_agg_divergence_quant_split_ref(q, scales, W, C, staleness,
+                                          exponent: float, splits: int,
+                                          lanes: int = 1):
+    """``cohort_agg_divergence_quant_ref`` in the order of the int8 kernel's
+    sums (``csrc/cohort_agg.cu`` ``agg_kernel``): the clients in ``splits``
+    contiguous ranges of ceil(N / splits); in a range, lane l takes clients
+    n0 + l, n0 + l + lanes, ...; each client's codes are summed as codes
+    with its scalars folded into the row weights (agg += W s_n disc_n q, sum
+    += C s_n q, sq += C s_n^2 |q_row|^2 per row, cnt += C); the lanes add in
+    lane order, then the splits in split order; mean = sum / max(cnt, 1).
+    ``splits`` and ``lanes`` come from ``ops.plan_quant``."""
+    q32 = q.float()
+    s = scales.float()
+    c = C.float()
+    f = s * staleness_discount_ref(staleness, exponent)
+    N = q.shape[0]
+    chunk = -(-N // splits)
+    total = None
+    for n0 in range(0, N, chunk):
+        part = None
+        for lane in range(lanes):
+            first, end = n0 + lane, min(N, n0 + chunk)
+            n = torch.arange(first, max(first, end), lanes, device=q.device)
+            cs = c[n] * s[n, None]
+            terms = (torch.einsum("nd,ndr->dr", W[n].float() * f[n, None],
+                                  q32[n]),
+                     torch.einsum("nd,ndr->dr", cs, q32[n]),
+                     torch.einsum("nd,nd->d", cs * s[n, None],
+                                  q32[n].square().sum(-1)),
+                     c[n].sum(0))
+            part = terms if part is None else tuple(
+                a + b for a, b in zip(part, terms))
+        total = part if total is None else tuple(
+            a + b for a, b in zip(total, part))
+    agg, msum, sqsum, cnt = total
+    return agg, sqsum, msum / cnt.clamp(min=1.0)[:, None], cnt

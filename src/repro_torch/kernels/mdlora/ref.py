@@ -6,7 +6,9 @@
 Both products run in fp32 (fp64 for fp64 inputs, which the gradient check
 uses) and the result is cast to x's dtype, as in the kernels.
 ``mdlora_matmul_ref`` (one adapter for every row, kernel ``csrc/mdlora.cu``)
-broadcasts over one optional leading batch axis of any operand.
+broadcasts over one optional leading batch axis of any operand;
+``mdlora_matmul_tf32x3_ref`` is the same function in that kernel's
+arithmetic.
 """
 from __future__ import annotations
 
@@ -28,6 +30,52 @@ def mdlora_matmul_ref(x, w0, a, b, row_mask, scale):
         xm = xm * row_mask.to(acc).unsqueeze(-2)
     lora = (xm @ a.to(acc)) @ b.to(acc) * scale
     return (xm @ w0.to(acc) + lora).to(x.dtype)
+
+
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits
+    (0x1000) to the magnitude and clear them. Inf and NaN pass unchanged."""
+    bits = v.float().contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    out = ((bits & ~0x7FFFFFFF) | mag).view(torch.float32)
+    return torch.where(torch.isfinite(v), out, v.float())
+
+
+def mdlora_matmul_tf32x3_ref(x, w0, a, b, row_mask, scale, groups: int = 4):
+    """``mdlora_matmul_ref`` in the arithmetic of ``csrc/mdlora.cu``'s
+    tensor-core products: x*m (rounded to bf16 once for bf16 x) times
+    [W0 | a] side by side, each operand split into TF32 hi = rna(v) and lo
+    = rna(v - hi). D is cut into k-steps of the kernel's depth (8 d in fp32,
+    16 in bf16); k-step i belongs to k-group i % ``groups``, which adds, per
+    k-step in ascending order, lo*hi, then hi*lo, then hi*hi to its fp32
+    sums; the k-groups are added in order. Then y = base + scale * u @ b in
+    fp32, cast to x's dtype. bf16 operands are exact in TF32 (lo = 0)."""
+    xm = x.float()
+    if row_mask is not None:
+        xm = xm * row_mask.float().unsqueeze(-2)
+    if x.dtype == torch.bfloat16:
+        xm = xm.to(torch.bfloat16).float()
+    lead = torch.broadcast_shapes(x.shape[:-2], w0.shape[:-2], a.shape[:-2],
+                                  b.shape[:-2])
+    wa = torch.cat([w0.float().expand(lead + w0.shape[-2:]),
+                    a.float().expand(lead + a.shape[-2:])], -1)
+    xh, wh = tf32_rna(xm), tf32_rna(wa)
+    xl, wl = tf32_rna(xm - xh), tf32_rna(wa - wh)
+    step = 16 if x.dtype == torch.bfloat16 else 8
+    sums = [torch.zeros(lead + (x.shape[-2], wa.shape[-1]), device=x.device)
+            for _ in range(groups)]
+    for i, d in enumerate(range(0, x.shape[-1], step)):
+        k = slice(d, d + step)
+        acc = sums[i % groups] + xl[..., k] @ wh[..., k, :]
+        acc = acc + xh[..., k] @ wl[..., k, :]
+        sums[i % groups] = acc + xh[..., k] @ wh[..., k, :]
+    acc = sums[0]
+    for part in sums[1:]:
+        acc = acc + part
+    F = w0.shape[-1]
+    lora = acc[..., F:] @ b.float()
+    return (acc[..., :F] + scale * lora).to(x.dtype)
 
 
 def mdlora_matmul_multi_ref(x, w0, a, b, adapter_idx, row_mask, scale):

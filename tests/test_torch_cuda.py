@@ -709,3 +709,101 @@ def test_ssd_bf16_call_is_one_launch(dev):
     f32 = [t.float() for t in args]
     n, names = _launches(lambda: ssd_ops.ssd(*f32, 64))
     assert n == 2, names
+
+
+# the tensor-core fused projection and the one-launch int8 aggregation
+
+FUSED_PATH_CASES = FUSED_CASES + [
+    (1024, 32, 112, 128, 8, ("w0",)),  # 1024 clients: the widest column tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("K,T,D,F,r,share", FUSED_PATH_CASES)
+def test_fused_mdlora_kernel_matches_its_tf32x3_plain(dev, dtype, K, T, D, F,
+                                                      r, share):
+    """Against the plain version in the kernel's arithmetic (3xTF32 in
+    fp32, x*m rounded to bf16 once in bf16) and the one-pass plain version;
+    two calls bitwise equal."""
+    args = _fused_inputs(K, T, D, F, r, dtype, dev, 3 * K + D, share)
+    got = md_ops.mdlora_matmul(*args)
+    atol, rtol = MD_TOL[dtype]
+    for want in (md_ref.mdlora_matmul_tf32x3_ref(*args),
+                 md_ref.mdlora_matmul_ref(*args)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    assert torch.equal(md_ops.mdlora_matmul(*args), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fused_mdlora_slice_rows_do_not_depend_on_K(dev, dtype):
+    """The path's 8 slices, alone, and inside 1024 (another column tile):
+    the same bits."""
+    big = _fused_inputs(1024, 32, 112, 128, 8, dtype, dev, 11)
+    x, w0, a, b, mask, s = big
+    full = md_ops.mdlora_matmul(*big)
+    eight = md_ops.mdlora_matmul(x[:8].contiguous(), w0, a[:8].contiguous(),
+                                 b[:8].contiguous(), mask[:8].contiguous(), s)
+    one = md_ops.mdlora_matmul(x[3], w0, a[3], b[3], mask[3], s)
+    assert torch.equal(full[:8], eight)
+    assert torch.equal(full[3], one)
+
+
+@pytest.mark.parametrize("K,T,D,F,r,share", FUSED_PATH_CASES)
+def test_fused_mdlora_call_is_one_launch(dev, K, T, D, F, r, share):
+    args = _fused_inputs(K, T, D, F, r, torch.float32, dev, 1, share)
+    n, names = _launches(lambda: md_ops.mdlora_matmul(*args))
+    assert n == 1 and all("fused_kernel" in k for k in names), names
+
+
+QUANT_SHAPES = SHAPES + [(4096, 112, 4), (2000, 7, 1000),
+                         (64, 3, 2048)]  # rows wider than a block: passes
+
+
+@pytest.mark.parametrize("N,D,r", QUANT_SHAPES)
+@pytest.mark.parametrize("exponent", [0.0, 0.5])
+def test_quant_kernel_matches_its_split_plain(dev, N, D, r, exponent):
+    _, W, C, q, s, st = _inputs(N, D, r, 5 * N + r, dev)
+    plan = ops.plan_quant(
+        N, D, r, torch.cuda.get_device_properties(dev).multi_processor_count)
+    got = ops.cohort_agg_divergence_quant(q, s, W, C, st, exponent)
+    for want in (ref.cohort_agg_divergence_quant_split_ref(
+                     q, s, W, C, st, exponent, plan.splits, plan.lanes),
+                 ref.cohort_agg_divergence_quant_ref(q, s, W, C, st,
+                                                     exponent)):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("N,D,r", [(4, 112, 128), (16384, 1024, 4),
+                                   (300, 100, 1), (2000, 7, 1000)])
+def test_quant_call_is_one_launch(dev, N, D, r):
+    _, W, C, q, s, st = _inputs(N, D, r, 0, dev)
+    n, names = _launches(
+        lambda: ops.cohort_agg_divergence_quant(q, s, W, C, st, 0.5))
+    assert n == 1 and all("agg_kernel" in k for k in names), names
+    x = q.float()
+    n, _ = _launches(lambda: ops.cohort_agg_divergence(x, W, C))
+    assert n == 2  # the fp32 kernel keeps its two stages
+
+
+def test_quant_kernel_is_deterministic_and_leaves_counters_zeroed(dev):
+    """A multi-split shape, alternating with a smaller one that reuses the
+    tile counters: each call leaves them zeroed, repeated calls agree
+    bitwise."""
+    big = _inputs(4096, 112, 4, 0, dev)
+    small = _inputs(300, 100, 1, 1, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ops.plan_quant(4096, 112, 4, sms).splits > 1
+    assert ops.plan_quant(300, 100, 1, sms).splits > 1
+    call = lambda t: ops.cohort_agg_divergence_quant(  # noqa: E731
+        t[3], t[4], t[1], t[2], t[5], 0.5)
+    first = [call(big), call(small)]
+    for _ in range(3):
+        for t, want in zip((big, small), first):
+            for u, v in zip(call(t), want):
+                assert torch.equal(u, v)
+    torch.cuda.synchronize()
+    assert int(ops._COUNTERS[big[3].device].abs().sum()) == 0
