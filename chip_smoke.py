@@ -10,11 +10,13 @@ Phases, each printing its lines (and its wall time) before the last:
               build time and ptxas register/smem lines
   3. kernels  each cohort-agg kernel vs its plain version (ref.py) at the
               path shape, ragged shapes, an empty cohort and fleet scale;
-              max abs error, CUDA-event time per call, the byte/flop bound;
-              the int8 kernel's plan (rows per tile, lanes, splits) and its
-              launches per call (asserted 1; the fp32 kernel's 2), counted
-              by the profiler in a child process (``--launch-counts``, run
-              right after the build, as for phases 6, 10 and 14)
+              max abs error against the one-pass plain version and the
+              split-order one (the kernel's order of sums), CUDA-event time
+              per call, the byte/flop bound; each call's plan (rows per
+              tile, lanes, splits) and launches per call (asserted 1 for
+              both uplinks), counted by the profiler in a child process
+              (``--launch-counts``, run right after the build, as for
+              phases 6, 10 and 14); two fleet calls bitwise equal
   4. main     the asynchronous RELIEF runtime (AsyncFedRun) on full-width
               PAMAP2 Backbone 1, paper fleet (3,3,2), 100x compute gap,
               K=4, a=0.5, through the entry point's ``build``: one cold-start
@@ -253,52 +255,60 @@ def check_kernels(torch, ops, ref, counts) -> dict:
         s = torch.rand((N,), **kw) * 0.1 + 1e-3
         st = torch.randint(0, 6, (N,), **kw).float()
         exps = [0.5, 0.0] if label == "path" else [0.5]
+        p = ops.plan_agg(N, D, r, sms)
         calls = {"cohort_agg_divergence": [(
             "", lambda: ops.cohort_agg_divergence(x, W, C),
             lambda: ref.cohort_agg_divergence_ref(x, W, C),
+            lambda: ref.cohort_agg_divergence_split_ref(x, W, C, p.splits,
+                                                        p.lanes),
             lambda: ref.cohort_agg_divergence_ref(x.abs(), W, C))]}
         calls["cohort_agg_divergence_quant"] = [(
             f" a={a}",
             lambda a=a: ops.cohort_agg_divergence_quant(q, s, W, C, st, a),
             lambda a=a: ref.cohort_agg_divergence_quant_ref(q, s, W, C, st, a),
+            lambda a=a: ref.cohort_agg_divergence_quant_split_ref(
+                q, s, W, C, st, a, p.splits, p.lanes),
             lambda a=a: ref.cohort_agg_divergence_quant_ref(q.abs(), s, W, C,
                                                             st, a))
             for a in exps]
         for name, variants in calls.items():
-            for tag, kern, plain, abs_sum in variants:
-                got, want, scale = kern(), plain(), abs_sum()
-                torch.cuda.synchronize()
-                errs = []
-                for o, a, b, S in zip(("agg", "sq", "mean", "cnt"), got, want,
-                                      scale):
-                    if not torch.isfinite(a).all():
-                        fail(f"{name} {label} {o}: non-finite output")
-                    err = (a - b).abs()
-                    if (err > ATOL + RTOL * b.abs() + SUM_RTOL * S).any():
-                        fail(f"{name} {label} {(N, D, r)} {o}: max abs err "
-                             f"{err.max().item():.3e} exceeds {ATOL} + "
-                             f"{RTOL}*|plain| + {SUM_RTOL}*sum|terms|")
-                    errs.append((o, err.max().item()))
+            for tag, kern, plain, split, abs_sum in variants:
+                got, scale = kern(), abs_sum()
+                errs = {}  # yardstick -> [(output, max abs err)]
+                for yard, want in (("plain", plain()), ("split", split())):
+                    torch.cuda.synchronize()
+                    errs[yard] = []
+                    for o, a, b, S in zip(("agg", "sq", "mean", "cnt"), got,
+                                          want, scale):
+                        if not torch.isfinite(a).all():
+                            fail(f"{name} {label} {o}: non-finite output")
+                        err = (a - b).abs()
+                        if (err > ATOL + RTOL * b.abs() + SUM_RTOL * S).any():
+                            fail(f"{name} {label} {(N, D, r)} {o} vs the "
+                                 f"{yard} plain version: max abs err "
+                                 f"{err.max().item():.3e} exceeds {ATOL} + "
+                                 f"{RTOL}*|plain| + {SUM_RTOL}*sum|terms|")
+                        errs[yard].append((o, err.max().item()))
+                split_err = max(e for _, e in errs["split"])
+                errs = errs["plain"]
+                if label == "fleet":  # no atomics: the same bits again
+                    if not all(torch.equal(a, b) for a, b in zip(got, kern())):
+                        fail(f"{name} fleet: two calls differ")
                 iters = 20 if label == "fleet" else 200
                 ms, call_ms = time_ms(torch, kern, iters)
                 plain_ms, plain_call = time_ms(torch, plain,
                                                5 if label == "fleet" else iters)
                 b_ms, by = bound(name, N, D, r)
                 n_launch = counts[f"{name} {label} {(N, D, r)}"]
-                if name == "cohort_agg_divergence":
-                    plan = f"splits {ops.split_count(N, D, r, x.device)}"
-                    want_launch = 2
-                else:
-                    p = ops.plan_quant(N, D, r, sms)
-                    plan = (f"plan {p.rows} rows x {p.tiles(D)} tiles, "
-                            f"{p.lanes} lanes, {p.splits} splits")
-                    want_launch = 1
-                if n_launch != want_launch:
+                if n_launch != 1:
                     fail(f"{name} {label}: {n_launch} launches per call, "
-                         f"expected {want_launch}")
+                         "expected 1")
                 say(f"[kernel] {name}{tag} {label} N,D,r={N},{D},{r} "
-                    f"{plan}, {n_launch} launch(es) per call: "
-                    + " ".join(f"{o} {e:.2e}" for o, e in errs)
+                    f"plan {p.rows} rows x {p.tiles(D)} tiles, {p.lanes} "
+                    f"lanes, {p.splits} splits, {n_launch} launch(es) per "
+                    "call: " + " ".join(f"{o} {e:.2e}" for o, e in errs)
+                    + f" (vs split order {split_err:.2e})"
+                    + (" bitwise repeatable" if label == "fleet" else "")
                     + f" | device {ms * 1e3:.2f} us/call (plain "
                     f"{plain_ms * 1e3:.2f} us), bound {b_ms * 1e3:.3f} us "
                     f"({by}) = {b_ms / ms:.1%} of device time | eager call "

@@ -14,40 +14,40 @@
 // W * (1 + staleness[n])^-a, so the fp32 stack never exists in device memory.
 //
 // Bound: device-memory bytes. Each input element is read once and feeds ~7
-// flops, far below the card's flops-per-byte ridge.
+// flops, far below the card's flops-per-byte ridge. The least bytes per call
+// are 4 N D r + 8 N D (fp32) and N D r + 8 N D + 8 N (int8), plus 8 D (r + 1)
+// of outputs: at the fleet's 16384 x 1024 x 4, 402.7 MB (120.2 us at 3.35
+// TB/s) and 201.5 MB (60.1 us). W and C are 134 MB of either.
 //
 // The Pallas grid walks N in order with its accumulators resident in VMEM.
 // Blocks on Hopper run in parallel and in no order, so the reduction over N
 // is split over blocks, and no float atomics are used anywhere: the result
 // depends on the shape and the plan only, never on scheduling.
 //
-// fp32 uplink (cohort_agg_f32): the first version, two launches:
-//   stage 1  grid (element tiles of [D*r]) x (client splits). Each block
-//            reduces its slice of clients into per-element fp32 partials in a
-//            workspace (agg, cohort sum, squared sum; count per row).
-//   stage 2  one thread per element sums the partials in split order and
-//            finishes: the row reductions (sq over r, cnt) and mean / cnt.
-//   Threads own consecutive elements, so loads are coalesced; the ragged
-//   tail of D*r is masked. (partial_kernel's quantized branches are no
-//   longer instantiated.)
-//
-// int8 uplink (cohort_agg_i8): agg_kernel, one launch. Its load stage
-// (I8Uplink) is the only part that knows the uplink's type.
+// One kernel serves both uplinks: agg_kernel, one launch. Its load stage
+// (F32Uplink, I8Uplink) is the only part that knows the uplink's type: the
+// raw span it loads, how the span unpacks to floats, whether a per-client
+// scale exists, and how many clients' loads it keeps in flight.
 //   * Blocks of 256 threads = (span threads) x (client lanes). A span is 4
-//     consecutive codes of a row (one char4 load) when r % 4 == 0, else one
-//     code. A tile is whole rows, as many as the span threads cover (the
-//     path's r = 128: one row of 32 spans; the fleet's r = 4: 32 rows); a
-//     row wider than 256 spans is walked in passes. Lane l of a block's
-//     split takes clients n0 + l, n0 + l + lanes, ..., so even N = 4 keeps
-//     every load of a tile in flight at once.
-//   * W[n, d] and C[n, d] are read once per span, not once per element. The
-//     per-client scalars (scale, scale * (1 + staleness)^-a) are computed by
-//     one thread per client for the warp's next 32 clients and broadcast by
-//     shuffle. Codes are summed as codes: agg += (W f_n) q, sum += (C s_n)
-//     q, sq += (C s_n^2) |q|^2.
-//   * Clients go 4 at a time, every load of the group issued before any
-//     use (4 x 12 bytes per thread in flight; 8 spilled registers and ran
-//     slower at fleet scale on an H100).
+//     consecutive elements of a row (one float4 / char4 load) when r % 4 ==
+//     0, else one. A tile is whole rows, as many as the span threads cover
+//     (the path's r = 128: one row of 32 spans per 32 threads; the fleet's
+//     r = 4: 32 rows, so a warp reads 512 contiguous bytes of fp32 deltas
+//     and 128 of W and of C); a row wider than 256 spans is walked in
+//     passes. Lane l of a block's split takes clients n0 + l, n0 + l +
+//     lanes, ..., so even N = 4 keeps every load of a tile in flight at once.
+//   * W[n, d] and C[n, d] are read once per span, not once per element.
+//     int8: the per-client scalars (scale, scale * (1 + staleness)^-a) are
+//     computed by one thread per client for the warp's next 32 clients and
+//     broadcast by shuffle; codes are summed as codes: agg += (W f_n) q, sum
+//     += (C s_n) q, sq += (C s_n^2) |q|^2. fp32 has no scalars (no shuffle):
+//     agg += W x, sum += C x, sq += C |x|^2.
+//   * Clients go kUnroll at a time, every load of the group issued before
+//     any use: 4 x 12 bytes per thread in flight for int8, 2 x 24 bytes for
+//     fp32 (a float4 is 4 registers). A thread has 64 registers at 4 blocks
+//     per SM: int8 at 8 clients and fp32 at 4 or 8 spilled, and each ran
+//     slower at fleet scale on an H100. Streaming loads (__ldcs) of the
+//     fp32 deltas, read once, were no faster and are not used.
 //   * Stage 1 keeps the row statistics: the lanes add in lane order, then
 //     the spans of each row in span order; a split's partials are [S, E]
 //     for agg and the cohort sum and [S, D] for sq and cnt.
@@ -58,9 +58,10 @@
 //     cnt, and zeroes the counter. With S = 1 the block writes the outputs
 //     itself. The counters are an int32 buffer per device that the wrapper
 //     keeps zeroed; the calls of a stream run in order.
-//   * The plan (rows per tile, lanes, S) comes from the wrapper's
-//     plan_quant, a function of (N, D, r, SM count): all blocks resident in
-//     one wave where N allows, at most 4 blocks of 256 threads per SM.
+//   * The plan (rows per tile, lanes, S) comes from the wrapper's plan_agg,
+//     a function of (N, D, r, SM count) for both uplinks: all blocks
+//     resident in one wave where N allows, at most 4 blocks of 256 threads
+//     per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,143 +70,38 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 4;
-constexpr int kTile = kThreads * kPerThread;
-
-// Workspace layout for S splits and E = D*r elements:
-//   [S, E] agg partials | [S, E] cohort sums | [S, E] squared sums | [S, D] counts
-template <bool kQuant, bool kDiscount>
-__global__ void __launch_bounds__(kThreads) partial_kernel(
-    const void* __restrict__ x_raw, const float* __restrict__ scales,
-    const float* __restrict__ W, const float* __restrict__ C,
-    const float* __restrict__ staleness, float exponent, int N, int D, int r,
-    float* __restrict__ ws) {
-  const long long E = (long long)D * r;
-  const int S = gridDim.y;
-  const int split = blockIdx.y;
-  const int chunk = (N + S - 1) / S;
-  const int n0 = split * chunk;
-  const int n1 = min(N, n0 + chunk);
-
-  long long e[kPerThread];
-  int row[kPerThread];
-  bool valid[kPerThread];
-  float acc_agg[kPerThread], acc_sum[kPerThread], acc_sq[kPerThread],
-      acc_cnt[kPerThread];
-  const long long base = (long long)blockIdx.x * kTile + threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    e[k] = base + (long long)k * kThreads;
-    valid[k] = e[k] < E;
-    row[k] = valid[k] ? (int)(e[k] / r) : 0;
-    acc_agg[k] = acc_sum[k] = acc_sq[k] = acc_cnt[k] = 0.f;
-  }
-
-  for (int n = n0; n < n1; ++n) {
-    float x_scale = 1.f, w_scale = 1.f;
-    if (kQuant) x_scale = scales[n];
-    if (kDiscount) w_scale = powf(1.f + staleness[n], -exponent);
-    const long long w0 = (long long)n * D;
-    const long long x0 = (long long)n * E;
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      if (!valid[k]) continue;
-      float x;
-      if (kQuant) {
-        x = (float)static_cast<const int8_t*>(x_raw)[x0 + e[k]] * x_scale;
-      } else {
-        x = static_cast<const float*>(x_raw)[x0 + e[k]];
-      }
-      const float w = W[w0 + row[k]] * w_scale;
-      const float c = C[w0 + row[k]];
-      acc_agg[k] += w * x;
-      acc_sum[k] += c * x;
-      acc_sq[k] += c * (x * x);
-      acc_cnt[k] += c;
-    }
-  }
-
-  float* p_agg = ws + (long long)split * E;
-  float* p_sum = ws + (long long)(S + split) * E;
-  float* p_sq = ws + (long long)(2 * S + split) * E;
-  float* p_cnt = ws + 3LL * S * E + (long long)split * D;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    if (!valid[k]) continue;
-    p_agg[e[k]] = acc_agg[k];
-    p_sum[e[k]] = acc_sum[k];
-    p_sq[e[k]] = acc_sq[k];
-    if (e[k] % r == 0) p_cnt[row[k]] = acc_cnt[k];  // one writer per row
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) finish_kernel(
-    const float* __restrict__ ws, int S, int D, int r, float* __restrict__ agg,
-    float* __restrict__ sq, float* __restrict__ mean, float* __restrict__ cnt) {
-  const long long E = (long long)D * r;
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const float* p_agg = ws;
-  const float* p_sum = ws + (long long)S * E;
-  const float* p_sq = ws + 2LL * S * E;
-  const float* p_cnt = ws + 3LL * S * E;
-  if (i < E) {
-    const long long d = i / r;
-    float a = 0.f, m = 0.f, c = 0.f;
-    for (int s = 0; s < S; ++s) {
-      a += p_agg[s * E + i];
-      m += p_sum[s * E + i];
-      c += p_cnt[s * (long long)D + d];
-    }
-    agg[i] = a;
-    mean[i] = m / fmaxf(c, 1.f);
-  }
-  if (i < D) {
-    float q = 0.f, c = 0.f;
-    for (int s = 0; s < S; ++s) {
-      c += p_cnt[s * (long long)D + i];
-      const float* row = p_sq + s * E + i * r;
-      for (int j = 0; j < r; ++j) q += row[j];
-    }
-    sq[i] = q;
-    cnt[i] = c;
-  }
-}
-
-template <bool kQuant, bool kDiscount>
-int launch(const void* x, const float* scales, const float* W, const float* C,
-           const float* staleness, float exponent, int N, int D, int r,
-           int splits, float* ws, float* agg, float* sq, float* mean,
-           float* cnt, cudaStream_t stream) {
-  const long long E = (long long)D * r;
-  const dim3 grid1((unsigned)((E + kTile - 1) / kTile), (unsigned)splits);
-  partial_kernel<kQuant, kDiscount><<<grid1, kThreads, 0, stream>>>(
-      x, scales, W, C, staleness, exponent, N, D, r, ws);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid2 = (unsigned)((E + kThreads - 1) / kThreads);  // E >= D
-  finish_kernel<<<grid2, kThreads, 0, stream>>>(ws, splits, D, r, agg, sq,
-                                                mean, cnt);
-  return (int)cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// int8 uplink: one launch (agg_kernel)
-// ---------------------------------------------------------------------------
-
 constexpr int kAThreads = 256;
 constexpr int kABlocksPerSM = 4;  // resident blocks per SM the plan assumes
-constexpr int kUnroll = 4;        // clients whose loads are in flight at once
 constexpr int kSumBatch = 8;      // splits whose partials load before adding
 
-// The load stage: V codes of one client at a time -> fp32 codes, and the
+// The load stages: V elements of one client at a time -> floats, and the
 // per-client scale. The rest of agg_kernel sees only floats.
+struct F32Uplink {
+  using Code = float;
+  template <int V>
+  using Raw = typename std::conditional<V == 4, float4, float>::type;
+  static constexpr bool kScaled = false;
+  static constexpr int kUnroll = 2;  // clients whose loads are in flight
+  template <int V>
+  __device__ static Raw<V> load(const Code* p) {
+    return *reinterpret_cast<const Raw<V>*>(p);
+  }
+  __device__ static void unpack(float4 c, float (&v)[4]) {
+    v[0] = c.x;
+    v[1] = c.y;
+    v[2] = c.z;
+    v[3] = c.w;
+  }
+  __device__ static void unpack(float c, float (&v)[1]) { v[0] = c; }
+  __device__ static float scale(const float*, int) { return 1.f; }
+};
+
 struct I8Uplink {
   using Code = int8_t;
   template <int V>
   using Raw = typename std::conditional<V == 4, char4, signed char>::type;
   static constexpr bool kScaled = true;
+  static constexpr int kUnroll = 4;
   template <int V>
   __device__ static Raw<V> load(const Code* p) {
     return *reinterpret_cast<const Raw<V>*>(p);
@@ -245,6 +141,8 @@ __global__ void __launch_bounds__(kAThreads, kABlocksPerSM) agg_kernel(
     int* __restrict__ counters, float* __restrict__ agg,
     float* __restrict__ sq, float* __restrict__ mean,
     float* __restrict__ cnt) {
+  constexpr int kUnroll = Up::kUnroll;
+  constexpr bool kScalars = Up::kScaled || kDisc;
   __shared__ AggSmem<V> sm;
   const int tid = threadIdx.x, wl = tid & 31;
   const int ts = kAThreads / lanes, p = tid % ts, l = tid / ts;
@@ -274,7 +172,7 @@ __global__ void __launch_bounds__(kAThreads, kABlocksPerSM) agg_kernel(
     for (int kb = 0; kb < nl; kb += 32) {
       // thread wl computes the scalars of client kb + wl of this lane
       float fs = 0.f, fw = 0.f;
-      if (kb + wl < nl) {
+      if (kScalars && kb + wl < nl) {
         const int n = n0 + l + (kb + wl) * lanes;
         fs = Up::kScaled ? Up::scale(scales, n) : 1.f;
         fw = kDisc ? fs * powf(1.f + staleness[n], -exponent) : fs;
@@ -297,8 +195,11 @@ __global__ void __launch_bounds__(kAThreads, kABlocksPerSM) agg_kernel(
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const float s = __shfl_sync(0xffffffffu, fs, (u0 + u) & 31);
-          const float f = __shfl_sync(0xffffffffu, fw, (u0 + u) & 31);
+          float s = 1.f, f = 1.f;
+          if (kScalars) {
+            s = __shfl_sync(0xffffffffu, fs, (u0 + u) & 31);
+            f = __shfl_sync(0xffffffffu, fw, (u0 + u) & 31);
+          }
           if (u0 + u < cnt32) {
             float x[V];
             Up::unpack(raw[u], x);
@@ -442,18 +343,30 @@ __global__ void __launch_bounds__(kAThreads, kABlocksPerSM) agg_kernel(
   if (tid == 0) counters[tile] = 0;
 }
 
-template <int V>
-int launch_i8(const int8_t* q, const float* scales, const float* W,
-              const float* C, const float* staleness, float exponent, int N,
-              int D, int r, int rows, int lanes, int splits, float* ws,
-              int* counters, float* agg, float* sq, float* mean, float* cnt,
-              cudaStream_t stream) {
-  const long long blocks = (long long)((D + rows - 1) / rows) * splits;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  auto kern = exponent == 0.f ? agg_kernel<I8Uplink, V, false>
-                              : agg_kernel<I8Uplink, V, true>;
-  kern<<<(unsigned)blocks, kAThreads, 0, stream>>>(
-      q, scales, W, C, staleness, exponent, N, D, r, rows, lanes, splits, ws,
+// The plan's checks, shared by both entries: vec = elements per span (4
+// when r % 4 == 0, else 1), rows per tile, client lanes per block (a power
+// of two, at most 8, leaving at least 32 span threads), splits S; with S >
+// 1 a workspace and counters.
+bool bad_plan(int N, int D, int r, int vec, int rows, int lanes, int splits,
+              const float* ws, const int* counters) {
+  const int ts = lanes > 0 ? kAThreads / lanes : 0;
+  return N < 1 || D < 1 || r < 1 || splits < 1 || rows < 1 ||
+         (vec != 4 && vec != 1) || r % vec != 0 || lanes < 1 || lanes > 8 ||
+         (lanes & (lanes - 1)) != 0 || rows > ts ||
+         (rows > 1 && rows * (r / vec) > ts) ||
+         (splits > 1 && (ws == nullptr || counters == nullptr)) ||
+         (long long)((D + rows - 1) / rows) * splits > 0x7fffffff;
+}
+
+template <class Up, int V, bool kDisc>
+int launch(const typename Up::Code* x, const float* scales, const float* W,
+           const float* C, const float* staleness, float exponent, int N,
+           int D, int r, int rows, int lanes, int splits, float* ws,
+           int* counters, float* agg, float* sq, float* mean, float* cnt,
+           cudaStream_t stream) {
+  const unsigned blocks = (unsigned)(((D + rows - 1) / rows) * (long long)splits);
+  agg_kernel<Up, V, kDisc><<<blocks, kAThreads, 0, stream>>>(
+      x, scales, W, C, staleness, exponent, N, D, r, rows, lanes, splits, ws,
       counters, agg, sq, mean, cnt);
   return (int)cudaGetLastError();
 }
@@ -462,49 +375,48 @@ int launch_i8(const int8_t* q, const float* scales, const float* W,
 
 extern "C" {
 
-// Elements per stage-1 block; the wrapper sizes the split count from it.
-int cohort_agg_tile() { return kTile; }
-
-// fp32 uplink. ws holds (3 * D * r + D) * splits floats.
-int cohort_agg_f32(const float* deltas, const float* W, const float* C, int N,
-                   int D, int r, int splits, float* ws, float* agg, float* sq,
-                   float* mean, float* cnt, void* stream) {
-  return launch<false, false>(deltas, nullptr, W, C, nullptr, 0.f, N, D, r,
-                              splits, ws, agg, sq, mean, cnt,
-                              static_cast<cudaStream_t>(stream));
-}
-
 // agg_kernel's geometry, which the wrapper's planner must use: out =
 // {threads per block, resident blocks per SM}.
-void cohort_agg_quant_geometry(int* out) {
+void cohort_agg_geometry(int* out) {
   out[0] = kAThreads;
   out[1] = kABlocksPerSM;
 }
 
-// int8 uplink, one launch (agg_kernel); exponent == 0 takes the
-// specialization without powf. The plan: vec = codes per span (4 when
-// r % 4 == 0, else 1), rows per tile, client lanes per block (a power of
-// two, at most 8, leaving at least 32 span threads), splits S. With S > 1,
-// ws holds S * (2 * D * r + 2 * D) floats and counters ceil(D / rows)
-// zeroed int32 (left zeroed); with S = 1 neither is touched.
+// fp32 uplink, one launch (agg_kernel<F32Uplink>); with vec = 4 deltas must
+// be 16-byte aligned. With S > 1, ws holds S * (2 * D * r + 2 * D) floats
+// and counters ceil(D / rows) zeroed int32 (left zeroed); with S = 1
+// neither is touched.
+int cohort_agg_f32(const float* deltas, const float* W, const float* C,
+                   int N, int D, int r, int vec, int rows, int lanes,
+                   int splits, float* ws, int* counters, float* agg,
+                   float* sq, float* mean, float* cnt, void* stream) {
+  if (bad_plan(N, D, r, vec, rows, lanes, splits, ws, counters))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kern = vec == 4 ? launch<F32Uplink, 4, false>
+                       : launch<F32Uplink, 1, false>;
+  return kern(deltas, nullptr, W, C, nullptr, 0.f, N, D, r, rows, lanes,
+              splits, ws, counters, agg, sq, mean, cnt, s);
+}
+
+// int8 uplink, one launch (agg_kernel<I8Uplink>); exponent == 0 takes the
+// specialization without powf; with vec = 4 q must be 4-byte aligned. The
+// plan, ws and counters as for cohort_agg_f32.
 int cohort_agg_i8(const int8_t* q, const float* scales, const float* W,
                   const float* C, const float* staleness, float exponent,
                   int N, int D, int r, int vec, int rows, int lanes,
                   int splits, float* ws, int* counters, float* agg,
                   float* sq, float* mean, float* cnt, void* stream) {
-  const int ts = lanes > 0 ? kAThreads / lanes : 0;
-  if (N < 1 || D < 1 || r < 1 || splits < 1 || rows < 1 ||
-      (vec != 4 && vec != 1) || r % vec != 0 || lanes < 1 || lanes > 8 ||
-      (lanes & (lanes - 1)) != 0 || rows > ts ||
-      (rows > 1 && rows * (r / vec) > ts) ||
-      (splits > 1 && (ws == nullptr || counters == nullptr)))
+  if (bad_plan(N, D, r, vec, rows, lanes, splits, ws, counters))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4)
-    return launch_i8<4>(q, scales, W, C, staleness, exponent, N, D, r, rows,
-                        lanes, splits, ws, counters, agg, sq, mean, cnt, s);
-  return launch_i8<1>(q, scales, W, C, staleness, exponent, N, D, r, rows,
-                      lanes, splits, ws, counters, agg, sq, mean, cnt, s);
+  const bool disc = exponent != 0.f;
+  auto kern = vec == 4 ? (disc ? launch<I8Uplink, 4, true>
+                               : launch<I8Uplink, 4, false>)
+                       : (disc ? launch<I8Uplink, 1, true>
+                               : launch<I8Uplink, 1, false>);
+  return kern(q, scales, W, C, staleness, exponent, N, D, r, rows, lanes,
+              splits, ws, counters, agg, sq, mean, cnt, s);
 }
 
 }  // extern "C"

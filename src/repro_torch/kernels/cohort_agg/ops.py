@@ -6,11 +6,10 @@ the plain version in ``ref.py``; a CUDA tensor launches the CUDA kernel in
 kernel, per op (never the plain version), so a run can show its flushes
 went through the kernel.
 
-* ``cohort_agg_divergence`` (fp32 deltas): two launches, the client split
-  from ``split_count``.
-* ``cohort_agg_divergence_quant`` (int8 codes): one launch, planned by
-  ``plan_quant`` (a function of the shape and the SM count only, so results
-  are bitwise repeatable on one card).
+Both ops, ``cohort_agg_divergence`` (fp32 deltas) and
+``cohort_agg_divergence_quant`` (int8 codes), are one launch of the same
+kernel, planned by ``plan_agg`` (a function of the shape and the SM count
+only, so results are bitwise repeatable on one card).
 """
 from __future__ import annotations
 
@@ -26,16 +25,11 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.cohort_agg import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "cohort_agg.cu"
-# stage 1 puts at most this many blocks per SM in flight before splitting N
-# further buys nothing, and gives each split at least MIN_CLIENTS clients
-BLOCKS_PER_SM = 4
-MIN_CLIENTS = 8
-
 LAUNCHES = {"cohort_agg_divergence": 0, "cohort_agg_divergence_quant": 0}
-# the int8 kernel's geometry (checked against the source's when it loads):
+# the kernel's geometry (checked against the source's when it loads):
 # threads per block, resident blocks per SM; at most MAX_LANES client lanes
 # and at least MIN_LANE_CLIENTS clients per lane and split
-QUANT_THREADS, QUANT_BLOCKS_PER_SM = 256, 4
+AGG_THREADS, AGG_BLOCKS_PER_SM = 256, 4
 MAX_LANES, MIN_LANE_CLIENTS = 8, 4
 
 _P = ctypes.c_void_p
@@ -50,39 +44,29 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = runtime.load_library(SOURCE)
-    lib.cohort_agg_tile.argtypes = []
-    lib.cohort_agg_tile.restype = _I
-    lib.cohort_agg_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                   _P, _P]
+    lib.cohort_agg_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                                   _P, _P, _P, _P, _P, _P]
     lib.cohort_agg_f32.restype = _I
     lib.cohort_agg_i8.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, _I, _I,
                                   _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                   _P]
     lib.cohort_agg_i8.restype = _I
-    lib.cohort_agg_quant_geometry.argtypes = [ctypes.POINTER(_I)]
-    lib.cohort_agg_quant_geometry.restype = None
+    lib.cohort_agg_geometry.argtypes = [ctypes.POINTER(_I)]
+    lib.cohort_agg_geometry.restype = None
     geometry = (_I * 2)()
-    lib.cohort_agg_quant_geometry(geometry)
-    want = (QUANT_THREADS, QUANT_BLOCKS_PER_SM)
+    lib.cohort_agg_geometry(geometry)
+    want = (AGG_THREADS, AGG_BLOCKS_PER_SM)
     if tuple(geometry) != want:
-        raise RuntimeError(f"{SOURCE.name} has int8 geometry "
+        raise RuntimeError(f"{SOURCE.name} has geometry "
                            f"{tuple(geometry)}, the planner {want}")
     return lib
 
 
-def split_count(N: int, D: int, r: int, device: torch.device) -> int:
-    """Client splits of stage 1: enough blocks to fill the SMs, a fixed
-    function of the shape and the card (so results are reproducible)."""
-    tiles = -(-D * r // _lib().cohort_agg_tile())
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-N // MIN_CLIENTS), -(-BLOCKS_PER_SM * sms // tiles),
-                      65535))
-
-
-class QuantPlan(NamedTuple):
-    vec: int     # codes per span: 4 (one char4 load) when r % 4 == 0, else 1
+class AggPlan(NamedTuple):
+    vec: int     # elements per span: 4 (one float4 / char4 load) when
+    #              r % 4 == 0, else 1
     rows: int    # whole rows per element tile
-    lanes: int   # client lanes per block (QUANT_THREADS / lanes span threads)
+    lanes: int   # client lanes per block (AGG_THREADS / lanes span threads)
     splits: int  # client splits S, each a contiguous range of clients
 
     def tiles(self, D: int) -> int:
@@ -92,34 +76,35 @@ class QuantPlan(NamedTuple):
         return self.tiles(D) * self.splits
 
 
-def plan_quant(N: int, D: int, r: int, sms: int) -> QuantPlan:
-    """The int8 kernel's plan, from the shape and the SM count only.
+def plan_agg(N: int, D: int, r: int, sms: int) -> AggPlan:
+    """The kernel's plan for either uplink, from the shape and the SM count
+    only.
 
     Span threads: the least power of two (at least a warp) that covers one
     row's spans, at most the block; the rest of the block is client lanes,
     no more than N needs. A tile is as many whole rows as the span threads
     cover (one row, walked in passes, when it is wider). Splits fill the
-    card's resident slots (QUANT_BLOCKS_PER_SM per SM) in one wave, each
+    card's resident slots (AGG_BLOCKS_PER_SM per SM) in one wave, each
     lane keeping at least MIN_LANE_CLIENTS clients per split.
     """
     vec = 4 if r % 4 == 0 else 1
     sr = r // vec
     lanes = min(MAX_LANES, 1 << max(0, math.ceil(math.log2(N))))
-    while lanes > 1 and QUANT_THREADS // lanes < sr:
+    while lanes > 1 and AGG_THREADS // lanes < sr:
         lanes //= 2
-    ts = QUANT_THREADS // lanes
+    ts = AGG_THREADS // lanes
     rows = max(1, min(D, ts // sr))
     tiles = -(-D // rows)
     splits = max(1, min(-(-N // (lanes * MIN_LANE_CLIENTS)),
-                        QUANT_BLOCKS_PER_SM * sms // tiles))
-    return QuantPlan(vec, rows, lanes, splits)
+                        AGG_BLOCKS_PER_SM * sms // tiles))
+    return AggPlan(vec, rows, lanes, splits)
 
 
 _COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
 def _counters(dev: torch.device, n: int) -> torch.Tensor:
-    """The int8 kernel's tile counters on ``dev``: int32, zero between calls
+    """The kernel's tile counters on ``dev``: int32, zero between calls
     (a tile's last block zeroes its own), shared by the calls of a stream,
     which run in order; grown when a call has more tiles."""
     c = _COUNTERS.get(dev)
@@ -142,14 +127,25 @@ def _check(x: torch.Tensor, x_dtype: torch.dtype, W: torch.Tensor,
     return N, D, r
 
 
-def _outputs(N: int, D: int, r: int, device: torch.device):
-    S = split_count(N, D, r, device)
-    ws = torch.empty(S * (3 * D * r + D), dtype=torch.float32, device=device)
-    agg = torch.empty((D, r), dtype=torch.float32, device=device)
-    mean = torch.empty((D, r), dtype=torch.float32, device=device)
-    sq = torch.empty((D,), dtype=torch.float32, device=device)
-    cnt = torch.empty((D,), dtype=torch.float32, device=device)
-    return S, ws, agg, sq, mean, cnt
+def _outputs(N: int, D: int, r: int, dev: torch.device):
+    """The plan of a call on ``dev``, its workspace and tile counters (None
+    with one split) and the four outputs."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = plan_agg(N, D, r, sms)
+    ws = counters = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.splits * 2 * (D * r + D), dtype=torch.float32,
+                         device=dev)
+        counters = _counters(dev, plan.tiles(D))
+    agg = torch.empty((D, r), dtype=torch.float32, device=dev)
+    mean = torch.empty((D, r), dtype=torch.float32, device=dev)
+    sq = torch.empty((D,), dtype=torch.float32, device=dev)
+    cnt = torch.empty((D,), dtype=torch.float32, device=dev)
+    return plan, ws, counters, agg, sq, mean, cnt
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -169,13 +165,18 @@ def cohort_agg_divergence(deltas, W, C):
     if _device_kind(deltas) == "cpu":
         return ref.cohort_agg_divergence_ref(deltas, W, C)
     N, D, r = _check(deltas, torch.float32, W, C)
-    S, ws, agg, sq, mean, cnt = _outputs(N, D, r, deltas.device)
-    with torch.cuda.device(deltas.device):
+    dev = deltas.device
+    plan, ws, counters, agg, sq, mean, cnt = _outputs(N, D, r, dev)
+    if plan.vec == 4 and deltas.data_ptr() % 16:
+        raise ValueError("deltas must be 16-byte aligned for its float4 "
+                         "loads")
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().cohort_agg_f32(
-            deltas.data_ptr(), W.data_ptr(), C.data_ptr(), N, D, r, S,
-            ws.data_ptr(), agg.data_ptr(), sq.data_ptr(), mean.data_ptr(),
-            cnt.data_ptr(), stream)
+            deltas.data_ptr(), W.data_ptr(), C.data_ptr(), N, D, r, plan.vec,
+            plan.rows, plan.lanes, plan.splits, _ptr(ws), _ptr(counters),
+            agg.data_ptr(), sq.data_ptr(), mean.data_ptr(), cnt.data_ptr(),
+            stream)
     _raise_on(err, "cohort_agg_divergence")
     LAUNCHES["cohort_agg_divergence"] += 1
     return agg, sq, mean, cnt
@@ -199,27 +200,15 @@ def cohort_agg_divergence_quant(q, scales, W, C, staleness,
     runtime.check_cuda_tensor("staleness", staleness, torch.float32, (N,),
                               q.device)
     dev = q.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = plan_quant(N, D, r, sms)
+    plan, ws, counters, agg, sq, mean, cnt = _outputs(N, D, r, dev)
     if plan.vec == 4 and q.data_ptr() % 4:
         raise ValueError("q must be 4-byte aligned for its char4 loads")
-    S = plan.splits
-    ws = counters = None
-    if S > 1:
-        ws = torch.empty(S * 2 * (D * r + D), dtype=torch.float32,
-                         device=dev)
-        counters = _counters(dev, plan.tiles(D))
-    agg = torch.empty((D, r), dtype=torch.float32, device=dev)
-    mean = torch.empty((D, r), dtype=torch.float32, device=dev)
-    sq = torch.empty((D,), dtype=torch.float32, device=dev)
-    cnt = torch.empty((D,), dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().cohort_agg_i8(
             q.data_ptr(), scales.data_ptr(), W.data_ptr(), C.data_ptr(),
             staleness.data_ptr(), float(exponent), N, D, r, plan.vec,
-            plan.rows, plan.lanes, S, ptr(ws), ptr(counters),
+            plan.rows, plan.lanes, plan.splits, _ptr(ws), _ptr(counters),
             agg.data_ptr(), sq.data_ptr(), mean.data_ptr(), cnt.data_ptr(),
             stream)
     _raise_on(err, "cohort_agg_divergence_quant")

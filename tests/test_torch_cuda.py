@@ -81,7 +81,8 @@ def test_quant_kernel_matches_plain(dev, N, D, r, exponent):
 
 def test_kernel_is_deterministic(dev):
     x, W, C, *_ = _inputs(4096, 112, 4, 0, dev)
-    assert ops.split_count(4096, 112, 4, dev) > 1  # the two-stage path
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ops.plan_agg(4096, 112, 4, sms).splits > 1  # the last-block sum
     a = ops.cohort_agg_divergence(x, W, C)
     b = ops.cohort_agg_divergence(x, W, C)
     for u, v in zip(a, b):
@@ -766,7 +767,7 @@ QUANT_SHAPES = SHAPES + [(4096, 112, 4), (2000, 7, 1000),
 @pytest.mark.parametrize("exponent", [0.0, 0.5])
 def test_quant_kernel_matches_its_split_plain(dev, N, D, r, exponent):
     _, W, C, q, s, st = _inputs(N, D, r, 5 * N + r, dev)
-    plan = ops.plan_quant(
+    plan = ops.plan_agg(
         N, D, r, torch.cuda.get_device_properties(dev).multi_processor_count)
     got = ops.cohort_agg_divergence_quant(q, s, W, C, st, exponent)
     for want in (ref.cohort_agg_divergence_quant_split_ref(
@@ -785,8 +786,68 @@ def test_quant_call_is_one_launch(dev, N, D, r):
         lambda: ops.cohort_agg_divergence_quant(q, s, W, C, st, 0.5))
     assert n == 1 and all("agg_kernel" in k for k in names), names
     x = q.float()
-    n, _ = _launches(lambda: ops.cohort_agg_divergence(x, W, C))
-    assert n == 2  # the fp32 kernel keeps its two stages
+    n, names = _launches(lambda: ops.cohort_agg_divergence(x, W, C))
+    assert n == 1 and all("agg_kernel" in k for k in names), names
+
+
+@pytest.mark.parametrize("N,D,r", QUANT_SHAPES)
+@pytest.mark.parametrize("empty", [False, True], ids=["cohort", "empty"])
+def test_fp32_kernel_matches_its_split_plain(dev, N, D, r, empty):
+    x, W, C, *_ = _inputs(N, D, r, 3 * N + D + r, dev, empty)
+    plan = ops.plan_agg(
+        N, D, r, torch.cuda.get_device_properties(dev).multi_processor_count)
+    got = ops.cohort_agg_divergence(x, W, C)
+    for want in (ref.cohort_agg_divergence_split_ref(x, W, C, plan.splits,
+                                                     plan.lanes),
+                 ref.cohort_agg_divergence_ref(x, W, C)):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("N,D,r", [(4, 112, 128), (16384, 1024, 4),
+                                   (300, 100, 1), (2000, 7, 1000)])
+def test_fp32_call_is_one_launch(dev, N, D, r):
+    x, W, C, *_ = _inputs(N, D, r, 0, dev)
+    n, names = _launches(lambda: ops.cohort_agg_divergence(x, W, C))
+    assert n == 1 and all("agg_kernel" in k for k in names), names
+
+
+def test_fp32_kernel_is_deterministic_and_leaves_counters_zeroed(dev):
+    """As the int8 test below: a multi-split shape alternating with a
+    smaller one that reuses the tile counters."""
+    big = _inputs(4096, 112, 4, 2, dev)
+    small = _inputs(300, 100, 1, 3, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ops.plan_agg(300, 100, 1, sms).splits > 1
+    call = lambda t: ops.cohort_agg_divergence(*t[:3])  # noqa: E731
+    first = [call(big), call(small)]
+    for _ in range(3):
+        for t, want in zip((big, small), first):
+            for u, v in zip(call(t), want):
+                assert torch.equal(u, v)
+    torch.cuda.synchronize()
+    assert int(ops._COUNTERS[big[0].device].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("r", [4, 128])
+def test_fp32_wrapper_rejects_a_view_off_by_4_bytes(dev, r):
+    """float4 spans need 16-byte alignment: a contiguous view that starts
+    one float into its storage raises (no fallback to one-float spans,
+    which would change the order of the sums); r % 4 != 0 takes one-float
+    spans and runs."""
+    N, D = 4, 112
+    x, W, C, *_ = _inputs(N, D, r, 4, dev)
+    flat = torch.empty(N * D * r + 1, device=dev)
+    view = flat[1:].view(N, D, r)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.cohort_agg_divergence(view, W, C)
+    odd = torch.empty(N * D * 3 + 1, device=dev)[1:].view(N, D, 3)
+    odd.copy_(x[..., :3])
+    got = ops.cohort_agg_divergence(odd, W, C)
+    for a, b in zip(got, ref.cohort_agg_divergence_ref(odd, W, C)):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
 
 
 def test_quant_kernel_is_deterministic_and_leaves_counters_zeroed(dev):
@@ -796,8 +857,8 @@ def test_quant_kernel_is_deterministic_and_leaves_counters_zeroed(dev):
     big = _inputs(4096, 112, 4, 0, dev)
     small = _inputs(300, 100, 1, 1, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert ops.plan_quant(4096, 112, 4, sms).splits > 1
-    assert ops.plan_quant(300, 100, 1, sms).splits > 1
+    assert ops.plan_agg(4096, 112, 4, sms).splits > 1
+    assert ops.plan_agg(300, 100, 1, sms).splits > 1
     call = lambda t: ops.cohort_agg_divergence_quant(  # noqa: E731
         t[3], t[4], t[1], t[2], t[5], 0.5)
     first = [call(big), call(small)]

@@ -1,6 +1,7 @@
 """The arithmetic of the two kernels redesigned for Hopper, on the CPU: the
 plain versions that follow them against the JAX reference (its Pallas
-kernels in interpret mode and its jnp oracles), and the int8 planner.
+kernels in interpret mode and its jnp oracles), and the aggregation's
+planner.
 
 * The fused block-LoRA projection (``csrc/mdlora.cu``) runs its fp32 products
   on the tensor cores as 3xTF32: ``ref.mdlora_matmul_tf32x3_ref`` (with
@@ -9,7 +10,7 @@ kernels in interpret mode and its jnp oracles), and the int8 planner.
 * The int8 cohort aggregation (``csrc/cohort_agg.cu`` ``agg_kernel``) sums
   per split and per client lane, with the row statistics per row:
   ``ref.cohort_agg_divergence_quant_split_ref``, planned by
-  ``ops.plan_quant``.
+  ``ops.plan_agg``.
 
 Inputs come from seeded numpy generators. Tolerances: FUSED_TOL (1e-4 atol
 and rtol, fp32 sums over D = 112 in another order; 3xTF32 leaves ~2^-21 of
@@ -259,7 +260,7 @@ def test_quant_split_plain_matches_reference(N, D, r, exponent, empty):
 def test_quant_split_plain_at_the_plan_matches_plain(N, D, r, sms):
     """At the planner's (splits, lanes), including multi-split plans."""
     args = tuple(map(torch.from_numpy, _quant_case(N, D, r, 3 * N + r)))
-    plan = c_ops.plan_quant(N, D, r, sms)
+    plan = c_ops.plan_agg(N, D, r, sms)
     got = c_ref.cohort_agg_divergence_quant_split_ref(
         *args, 0.5, plan.splits, plan.lanes)
     want = c_ref.cohort_agg_divergence_quant_ref(*args, 0.5)
@@ -276,18 +277,18 @@ def test_quant_planner_properties(N, D, r, sms):
     """Tiles cover every row once; a tile's spans fit the span threads
     unless it is one row (walked in passes); lanes a power of two no larger
     than N needs; S >= 1; all blocks resident at once where D allows."""
-    plan = c_ops.plan_quant(N, D, r, sms)
-    assert plan == c_ops.plan_quant(N, D, r, sms)
+    plan = c_ops.plan_agg(N, D, r, sms)
+    assert plan == c_ops.plan_agg(N, D, r, sms)
     assert plan.vec == (4 if r % 4 == 0 else 1)
-    ts = c_ops.QUANT_THREADS // plan.lanes
-    assert ts >= 32 and ts * plan.lanes == c_ops.QUANT_THREADS
+    ts = c_ops.AGG_THREADS // plan.lanes
+    assert ts >= 32 and ts * plan.lanes == c_ops.AGG_THREADS
     assert plan.lanes & (plan.lanes - 1) == 0
     assert plan.lanes <= max(1, 2 ** math.ceil(math.log2(N)))
     assert 1 <= plan.rows <= D
     assert (plan.tiles(D) - 1) * plan.rows < D <= plan.tiles(D) * plan.rows
     assert plan.rows == 1 or plan.rows * (r // plan.vec) <= ts
     assert plan.splits >= 1
-    slots = c_ops.QUANT_BLOCKS_PER_SM * sms
+    slots = c_ops.AGG_BLOCKS_PER_SM * sms
     if plan.tiles(D) <= slots:
         assert plan.blocks(D) <= slots
     if plan.splits > 1:  # each lane keeps its share of clients
@@ -296,11 +297,11 @@ def test_quant_planner_properties(N, D, r, sms):
 
 
 def test_quant_planner_reads_the_shape_and_card_only():
-    assert list(inspect.signature(c_ops.plan_quant).parameters) == [
+    assert list(inspect.signature(c_ops.plan_agg).parameters) == [
         "N", "D", "r", "sms"]
-    path = c_ops.plan_quant(4, 112, 128, 132)
+    path = c_ops.plan_agg(4, 112, 128, 132)
     assert path.blocks(112) > 14 and path.splits == 1
-    fleet = c_ops.plan_quant(16384, 1024, 4, 132)
+    fleet = c_ops.plan_agg(16384, 1024, 4, 132)
     assert fleet.splits > 1 and fleet.blocks(1024) <= 4 * 132
 
 
