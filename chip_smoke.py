@@ -16,7 +16,8 @@ Phases, each printing its lines (and its wall time) before the last:
               tile, lanes, splits) and launches per call (asserted 1 for
               both uplinks), counted by the profiler in a child process
               (``--launch-counts``, run right after the build, as for
-              phases 6, 10 and 14); two fleet calls bitwise equal
+              phases 6, 10 and 14); two fleet calls bitwise equal; and
+              Backbone 2's fusion shapes (4, 112, 8) and (64, 112, 8)
   4. main     the asynchronous RELIEF runtime (AsyncFedRun) on full-width
               PAMAP2 Backbone 1, paper fleet (3,3,2), 100x compute gap,
               K=4, a=0.5, through the entry point's ``build``: one cold-start
@@ -90,6 +91,28 @@ Phases, each printing its lines (and its wall time) before the last:
               idle share, launches, top kernels)
  16. sync check  one PAMAP2_B2_SMALL relief round on the card against the
               same round on the CPU, and PAMAP2_B2 FULL logits card vs CPU
+ 17. async b2  the asynchronous runtime (AsyncFedRun) on full-width PAMAP2
+              Backbone 2 through ``train_async_har.build(backbone="b2")``:
+              paper fleet, 100x gap, K=4, a=0.5, E=5 x 4 steps of batch 32;
+              a cold-start flush, then 12 updates with the fp32 uplink and
+              12 with int8; host wall split into dispatch and flush; the
+              aggregation launches equal the flushes of each codec, the
+              fused projection's equal dispatch calls x 20 steps + the
+              evaluation's batches
+ 18. robust   the same runtime under faults (one sign-flipping attacker in
+              the mag cohort, 10% dropout, 10% stalls): relief_trimmed,
+              relief_median and relief_krum with 12 updates each (fp32) and
+              relief_krum with int8 (dequantized first); one fp32
+              aggregation launch per flush, dropped cycles
+ 19. fleet    (a) VectorizedAsyncFedRun in grad_mode "dispatch" against the
+              heap runtime on the card, B2 FULL, paper fleet: equal flush
+              histories; (b) grad_mode "cohort" at N = 10,000 (K=64, a ring
+              of 8 snapshots, churn 0.01, arrivals 0.02, jitter 0.1), 4
+              flushes per codec: host ms per flush, one aggregation launch
+              per flush
+ 20. async check  PAMAP2_B2_SMALL, 2 flushes, on the card against the CPU
+              from the same seed and weights: relief fp32, relief int8 and
+              relief_krum under phase 18's faults
 Each path's launch counts are zeroed just before it and read just after.
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero,
@@ -137,9 +160,13 @@ KERNELS = {
     "mdlora_matmul": "src/repro/kernels/mdlora/kernel.py:117",
 }
 PATH_SHAPE = (4, 112, 128)  # K=4 buffered clients x fusion_w0 [112, 128]
+# Backbone 2's fusion leaf a [112, 8]: K=4 buffered clients (the paper
+# fleet, phases 17-19a) and K=64 (the fleet-scale cohort flush, phase 19b)
+B2_PATH, B2_FLEET = (4, 112, 8), (64, 112, 8)
 CASES = [("path", PATH_SHAPE, False), ("ragged", (9, 100, 1), False),
          ("ragged", (16, 96, 8), False), ("empty", PATH_SHAPE, True),
-         ("fleet", (16384, 1024, 4), False)]
+         ("fleet", (16384, 1024, 4), False), ("b2 path", B2_PATH, False),
+         ("b2 fleet", B2_FLEET, False)]
 
 
 def say(msg: str) -> None:
@@ -323,18 +350,22 @@ def check_kernels(torch, ops, ref, counts) -> dict:
 # -- phase 4 ----------------------------------------------------------------
 
 
-def _time_phases(torch, run) -> dict:
+def _time_phases(torch, run, names=("_dispatch", "_flush")) -> dict:
     """Wrap the run's client dispatch (local training of the dispatched
-    clients) and server flush (aggregation) with synchronized host timers."""
-    spent = {"_dispatch": [0.0, 0, 0], "_flush": [0.0, 0, 0]}  # s, calls,
-    # clients dispatched
-    for name in spent:
+    clients) and server flush (aggregation) with synchronized host timers;
+    ``names`` are the two methods (the vectorized runtime's are
+    ``_dispatch_vec`` and ``_flush_vec``), keyed in the result as
+    ``_dispatch`` and ``_flush``."""
+    spent = {}
+    for key, name in zip(("_dispatch", "_flush"), names):
+        spent[key] = [0.0, 0, 0]  # s, calls, clients dispatched
         inner = getattr(run, name)
 
-        def wrapped(*args, _inner=inner, _acc=spent[name], **kw):
+        def wrapped(*args, _inner=inner, _acc=spent[key],
+                    _count=key == "_dispatch", **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            _acc[2] += len(args[0]) if args else 0
+            _acc[2] += len(args[0]) if _count else 0
             out = _inner(*args, **kw)
             torch.cuda.synchronize()
             _acc[0] += time.perf_counter() - t
@@ -1477,6 +1508,258 @@ def sync_check(torch, md_ops, train_relief_har, tree_map) -> None:
         fail("PAMAP2_B2 FULL logits on the card differ from the CPU's")
 
 
+# -- phases 17-20 -----------------------------------------------------------
+
+ASYNC_UPDATES = 12  # absorbed client updates per async run (3 flushes)
+# one sign-flipping attacker among the three mag holders (the full tier),
+# 10% of its cycles dropped and 10% stalled
+PHASE_FAULTS = dict(byzantine_frac=1 / 3, corruption="sign_flip",
+                    target_modality=3, dropout_prob=0.1, stall_prob=0.1)
+FLEET_N, FLEET_K, FLEET_FLUSHES = 10_000, 64, 4
+
+
+def _eval_batches(ds) -> int:
+    return -(-sum(len(y) for y in ds.test_y) // 256)
+
+
+def _run_async(torch, run, ds, updates, names=("_dispatch", "_flush")):
+    """Run ``updates`` absorbed updates with synchronized dispatch and flush
+    timers -> (history, host wall s, {phase: [s, calls, clients]})."""
+    spent = _time_phases(torch, run, names)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = run.run(ds, total_updates=updates)
+    torch.cuda.synchronize()
+    return hist, time.perf_counter() - t0, spent
+
+
+def _say_async(tag, run, hist, wall, spent) -> None:
+    (d_s, d_n, d_k), (f_s, f_n, _) = spent["_dispatch"], spent["_flush"]
+    say(f"[{tag}] {run.state.round} flushes, {run.trace.completions} updates,"
+        f" simulated {run.state.sim_time:.4f}s, host wall {wall:.2f}s: "
+        f"dispatch {d_s:.3f}s over {d_n} calls / {d_k} clients "
+        f"({d_s / max(d_k, 1) * 1e3:.1f} ms per client update, "
+        f"{d_s / max(d_n, 1) * 1e3:.1f} ms per call of 20 steps), flush "
+        f"{f_s * 1e3:.1f} ms over {f_n} ({f_s / max(f_n, 1) * 1e3:.2f} ms "
+        f"each); losses {[round(v, 4) for v in hist['loss']]}, macro-F1 "
+        f"{[round(v, 4) for v in hist['f1']]}")
+    if not all(math.isfinite(v) for v in hist["loss"]):
+        fail(f"{tag}: non-finite loss {hist['loss']}")
+
+
+def async_b2(torch, ops, md_ops, train_async_har) -> dict:
+    """Phase 17: AsyncFedRun on PAMAP2 B2 FULL, both uplinks."""
+    run, ds = train_async_har.build(backbone="b2", device="cuda")
+    t0 = time.perf_counter()
+    run.run(ds, total_updates=4)
+    torch.cuda.synchronize()
+    say(f"[async b2] cold start: first flush {time.perf_counter() - t0:.2f}s "
+        f"host wall; G={run.task.layout.G} groups, fusion a "
+        f"{tuple(run.state.trainable['lora']['fusion']['a'].shape)}")
+    launches = {"agg": 0, "quant": 0, "mdlora": 0}
+    for codec in ("none", "int8"):
+        run, ds = train_async_har.build(backbone="b2", codec=codec,
+                                        device="cuda")
+        ops.reset_launches()
+        md_ops.reset_launches()
+        hist, wall, spent = _run_async(torch, run, ds, ASYNC_UPDATES)
+        n = {**ops.LAUNCHES, **md_ops.LAUNCHES}
+        _say_async(f"async b2 codec={codec}", run, hist, wall, spent)
+        steps = run.fed.local_epochs * run.fed.steps_per_epoch
+        want = spent["_dispatch"][1] * steps + _eval_batches(ds)
+        flushes = run.state.round
+        say(f"[async b2] codec={codec} launches {n} (expected "
+            f"{'cohort_agg_divergence_quant' if codec == 'int8' else 'cohort_agg_divergence'}"
+            f" {flushes} = the flushes; mdlora_matmul {want} = "
+            f"{spent['_dispatch'][1]} dispatch calls x {steps} steps + "
+            f"{_eval_batches(ds)} evaluation batches)")
+        agg, other = ((n["cohort_agg_divergence_quant"],
+                       n["cohort_agg_divergence"]) if codec == "int8" else
+                      (n["cohort_agg_divergence"],
+                       n["cohort_agg_divergence_quant"]))
+        if (agg != flushes or other or n["mdlora_matmul"] != want
+                or n["mdlora_matmul_multi"]):
+            fail(f"async b2 codec={codec} did not launch the kernels its "
+                 "path requires")
+        launches["quant" if codec == "int8" else "agg"] += agg
+        launches["mdlora"] += n["mdlora_matmul"]
+    return launches
+
+
+def _dropped(run) -> int:
+    """Dispatched cycles that were neither absorbed nor still in flight."""
+    return int(run.fx.tickets.sum()) - run.trace.completions - len(run.queue)
+
+
+def robust_path(torch, ops, md_ops, train_async_har, FaultModel) -> dict:
+    """Phase 18: the robust reducers under faults on B2 FULL."""
+    import numpy as np
+
+    launches = {"agg": 0, "mdlora": 0}
+    for strategy, codec in (("relief_trimmed", "none"),
+                            ("relief_median", "none"),
+                            ("relief_krum", "none"), ("relief_krum", "int8")):
+        run, ds = train_async_har.build(
+            backbone="b2", codec=codec, device="cuda", strategy=strategy,
+            faults=FaultModel(**PHASE_FAULTS))
+        ops.reset_launches()
+        md_ops.reset_launches()
+        hist, wall, spent = _run_async(torch, run, ds, ASYNC_UPDATES)
+        tag = f"robust {strategy} codec={codec}"
+        _say_async(tag, run, hist, wall, spent)
+        n = {**ops.LAUNCHES, **md_ops.LAUNCHES}
+        say(f"[robust] {strategy} codec={codec}: attacker "
+            f"{np.nonzero(run.fx.byz)[0].tolist()}, "
+            f"{_dropped(run)} dropped cycles, {run.state.round} flushes, "
+            f"launches {n} (one fp32 aggregation per flush: a robust int8 "
+            "flush dequantizes first)")
+        if (n["cohort_agg_divergence"] != run.state.round
+                or n["cohort_agg_divergence_quant"] or run.state.round < 1):
+            fail(f"{tag}: aggregation launches {n} over "
+                 f"{run.state.round} flushes")
+        launches["agg"] += n["cohort_agg_divergence"]
+        launches["mdlora"] += n["mdlora_matmul"]
+    return launches
+
+
+def fleet_path(torch, ops, md_ops, train_async_har, async_engine, sim
+               ) -> dict:
+    """Phase 19: (a) the vectorized runtime against the heap one on the
+    card; (b) cohort gradients at fleet scale."""
+    import numpy as np
+
+    launches = {"agg": 0, "quant": 0, "mdlora": 0}
+    heap, ds = train_async_har.build(backbone="b2", device="cuda")
+    tr0 = heap.state.trainable
+    vec = async_engine.VectorizedAsyncFedRun.create(
+        heap.task, tr0, heap.strategy, heap.fleet,
+        dataclasses.replace(heap.fed, grad_mode="dispatch"))
+    hists = {}
+    for tag, run, names in (("heap", heap, ("_dispatch", "_flush")),
+                            ("vectorized", vec,
+                             ("_dispatch_vec", "_flush_vec"))):
+        ops.reset_launches()
+        md_ops.reset_launches()
+        hist, wall, spent = _run_async(torch, run, ds, ASYNC_UPDATES, names)
+        _say_async(f"fleet {tag}", run, hist, wall, spent)
+        hists[tag] = hist
+        n = {**ops.LAUNCHES, **md_ops.LAUNCHES}
+        if n["cohort_agg_divergence"] != run.state.round:
+            fail(f"fleet {tag}: {n} launches over {run.state.round} flushes")
+        launches["agg"] += n["cohort_agg_divergence"]
+        launches["mdlora"] += n["mdlora_matmul"]
+    h0, h1 = hists["heap"], hists["vectorized"]
+    same = all(h0[k] == h1[k] for k in ("flush", "sim_time_s",
+                                        "staleness_mean", "selected_frac"))
+    rel = max(abs(a - b) / abs(a) for a, b in zip(h0["loss"], h1["loss"]))
+    say(f"[fleet] heap vs vectorized (dispatch) on the card: flush, "
+        f"sim_time_s, staleness_mean, selected_frac equal: {same}; loss max "
+        f"rel err {rel:.2e} (rtol 1e-4)")
+    if not same or rel > 1e-4:
+        fail("the vectorized runtime's history differs from the heap's")
+
+    fleet = sim.scale_fleet(sim.make_fleet(3, 3, 2, M=4), FLEET_N,
+                            np.random.default_rng([0, 0x5CA1E]))
+    for codec in ("none", "int8"):
+        fed = dataclasses.replace(
+            heap.fed, grad_mode="cohort", uplink_codec=codec,
+            snapshot_ring=8, churn_rate=0.01, arrival_rate=0.02,
+            jitter_sigma=0.1)
+        run = async_engine.VectorizedAsyncFedRun.create(
+            heap.task, tr0,
+            dataclasses.replace(heap.strategy, buffer_size=FLEET_K), fleet,
+            fed)
+        ops.reset_launches()
+        md_ops.reset_launches()
+        hist, wall, spent = _run_async(torch, run, ds,
+                                       FLEET_K * FLEET_FLUSHES,
+                                       ("_dispatch_vec", "_flush_vec"))
+        n = {**ops.LAUNCHES, **md_ops.LAUNCHES}
+        f_s, f_n, _ = spent["_flush"]
+        d_s, d_n, _ = spent["_dispatch"]
+        name = ("cohort_agg_divergence_quant" if codec == "int8"
+                else "cohort_agg_divergence")
+        say(f"[fleet] cohort N={FLEET_N} K={FLEET_K} codec={codec}: "
+            f"{run.state.round} flushes in host wall {wall:.2f}s, "
+            f"{f_s / max(f_n, 1) * 1e3:.1f} ms per flush ({FLEET_K} clients"
+            f" x 20 steps + the aggregation), dispatch {d_s:.3f}s over "
+            f"{d_n} calls; simulated "
+            f"{run.state.sim_time:.4f}s, staleness "
+            f"{[round(v, 2) for v in hist['staleness_mean']]}, ring clamped "
+            f"{run.ring_clamped}, alive {int(run.fstate.alive.sum())}; "
+            f"losses {[round(v, 4) for v in hist['loss']]}; launches {n}")
+        if (run.state.round != FLEET_FLUSHES or n[name] != FLEET_FLUSHES
+                or not all(math.isfinite(v) for v in hist["loss"])):
+            fail(f"fleet cohort codec={codec}: {run.state.round} flushes, "
+                 f"launches {n}, losses {hist['loss']}")
+        launches["quant" if codec == "int8" else "agg"] += n[name]
+        launches["mdlora"] += n["mdlora_matmul"]
+    return launches
+
+
+def _record_scales(run) -> list:
+    """Wrap an int8 run's flush so each flush's per-leaf largest dequant
+    scale (one int8 step of that leaf) is kept."""
+    from repro_torch.tree import leaves_with_path
+
+    log, inner = [], run._flush_arrays
+
+    def wrapped(deltas, *args, **kw):
+        log.append({k: v.max().item()
+                    for k, v in leaves_with_path(deltas.scales)})
+        return inner(deltas, *args, **kw)
+
+    run._flush_arrays = wrapped
+    return log
+
+
+def async_check(torch, train_async_har, FaultModel) -> None:
+    """Phase 20: PAMAP2_B2_SMALL, 2 flushes, card against CPU from the same
+    seed and weights. fp32: trainable to atol 1e-4. int8: the clients'
+    deltas differ in their last bits (3xTF32 on the card), so a code whose
+    x/scale lies that close to k + 1/2 rounds the other way: each leaf is
+    held to 1e-4 plus one int8 step of that leaf per flush (the largest
+    dequant scale of the flush), and the elements beyond 1e-4 are counted."""
+    from repro_torch.tree import leaves_with_path
+
+    for strategy, codec, faults in (
+            ("async_relief", "none", None), ("async_relief", "int8", None),
+            ("relief_krum", "none", PHASE_FAULTS)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            run, ds = train_async_har.build(
+                backbone="b2", small=True, codec=codec, device=dev,
+                strategy=strategy,
+                faults=FaultModel(**faults) if faults else None)
+            scales = _record_scales(run) if codec == "int8" else []
+            hist = run.run(ds, total_updates=8)
+            out[dev] = (hist, {k: v.cpu() for k, v in
+                               leaves_with_path(run.state.trainable)},
+                        scales)
+        (hc, tc, sc), (hp, tp, _) = out["cuda"], out["cpu"]
+        bound = {k: 1e-4 + sum(f[k] for f in sc) for k in tp}
+        errs = {k: (tc[k] - tp[k]).abs() for k in tp}
+        err = max(e.max().item() for e in errs.values())
+        over = sum(int((e > 1e-4).sum()) for e in errs.values())
+        bad = [k for k in tp if errs[k].max().item() > bound[k]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(hc["loss"],
+                                                      hp["loss"]))
+        same = all(hc[k] == hp[k] for k in ("flush", "sim_time_s",
+                                            "staleness_mean"))
+        say(f"[check] PAMAP2_B2_SMALL {strategy} codec={codec}"
+            f"{' under faults' if faults else ''}: card vs CPU after "
+            f"{len(hc['flush'])} flushes: trainable max abs err {err:.2e} "
+            + (f"({over} of {sum(e.numel() for e in errs.values())} "
+               f"elements beyond 1e-4, each leaf within 1e-4 + one int8 "
+               f"step per flush, the largest step {max(bound.values()) - 1e-4:.2e})"
+               if codec == "int8" else "(atol 1e-4)")
+            + f", loss rel err {rel:.2e} (rtol 1e-4), histories equal: "
+            f"{same}")
+        if len(hc["flush"]) != 2 or not same or bad or rel > 1e-4:
+            fail(f"async {strategy} codec={codec} on the card disagrees "
+                 f"with the CPU: {bad}")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1579,6 +1862,20 @@ def main() -> None:
                                       train_relief_har, profile_serve)
     phase("sync check", sync_check, torch, md_ops, train_relief_har,
           tree_map)
+    from repro_torch import sim
+    from repro_torch.core import async_engine
+    for name, got in (
+            ("async b2", phase("async b2", async_b2, torch, ops, md_ops,
+                               train_async_har)),
+            ("robust", phase("robust", robust_path, torch, ops, md_ops,
+                             train_async_har, sim.FaultModel)),
+            ("fleet", phase("fleet", fleet_path, torch, ops, md_ops,
+                            train_async_har, async_engine, sim))):
+        launches["cohort_agg_divergence"] += got["agg"]
+        launches["cohort_agg_divergence_quant"] += got.get("quant", 0)
+        launches["mdlora_matmul"] += got["mdlora"]
+        say(f"[{name}] kernel 1-3 launches on this path: {got}")
+    phase("async check", async_check, torch, train_async_har, sim.FaultModel)
     lines = []
     for name, replaces in KERNELS.items():
         lines.append(dict(

@@ -7,15 +7,15 @@
   paper's interference-prone baseline.
 * ``aggregate``           -- the synchronous round's Eq. 3 step through
   ``mdlora.weighted_combine`` (plain reductions).
+* ``trimmed_mean``, ``coordinate_median``, ``krum_select`` and
+  ``robust_combine`` -- Byzantine-robust location estimates of each group's
+  cohort, replacing the weighted mean (membership = W > 0).
 * ``lemma1_decomposition`` -- Lemma 1's bias^2 / variance / interference
   split of one fusion block's FedAvg error.
 * ``staleness_discounts`` -- FedBuff's polynomial 1/(1+s)^a.
 * ``CohortAggBuffer``     -- streaming Eq. 3 aggregate + Eq. 5 divergence
   statistics over a flushed cohort; the row-blocked fusion leaf goes through
   the fused ``kernels/cohort_agg`` ops (the CUDA kernels on the card).
-
-Only the plain weighted mean is ported; the Byzantine-robust reducers
-(trimmed mean, median, Krum) are not, and asking for one raises.
 """
 from __future__ import annotations
 
@@ -25,10 +25,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import dist
 from repro_torch.core import mdlora
 from repro_torch.kernels.cohort_agg import ops as cohort_ops
 from repro_torch.kernels.cohort_agg.ref import staleness_discount_ref
-from repro_torch.tree import leaves, map_with_path, tree_map
+from repro_torch.tree import (leaves, leaves_with_path, map_with_path,
+                               tree_map)
 
 
 def cohort_weights(layout: mdlora.GroupLayout, trained: torch.Tensor,
@@ -113,6 +115,140 @@ def staleness_discounts(staleness: torch.Tensor,
     return 1.0 / torch.pow(1.0 + staleness.float(), exponent)
 
 
+# Byzantine-robust within-cohort reducers. RELIEF's cohorts (Eq. 3) are
+# small by construction, so one corrupted client can own a modality block;
+# these replace the weighted mean with bounded-breakdown estimates inside
+# each group's cohort (membership = W > 0). Divergence statistics (Eq. 5)
+# are unchanged: only the aggregate is robust.
+
+ROBUST_AGGREGATORS = ("mean", "trimmed", "median", "krum")
+
+
+def trimmed_mean(x: torch.Tensor, w: torch.Tensor,
+                 trim_frac: float) -> torch.Tensor:
+    """Coordinate-wise beta-trimmed weighted mean along axis 0.
+
+    x: [K, ...]; w: non-negative weights broadcastable to x (w > 0 marks
+    membership). Per coordinate the t = floor(beta * k) smallest and largest
+    member values are dropped (t <= (k-1)//2, so one survives) and the rest
+    averaged with renormalized weights. beta = 0 is the weighted mean; an
+    empty coordinate gives 0.
+    """
+    x = x.float()
+    w = torch.broadcast_to(w.float(), x.shape)
+    member = w > 0
+    k = member.sum(0)
+    t = torch.minimum(torch.floor(trim_frac * k),
+                      torch.clamp((k - 1) // 2, min=0)).long()
+    # non-members sort to the top (stable), so ranks 0..k-1 are the members
+    order = torch.argsort(torch.where(member, x, torch.inf), dim=0,
+                          stable=True)
+    ranks = torch.argsort(order, dim=0, stable=True)
+    keep = member & (ranks >= t) & (ranks < k - t)
+    wk = torch.where(keep, w, 0.0)
+    denom = wk.sum(0)
+    return torch.where(denom > 0, (wk * x).sum(0) / denom.clamp(min=1e-12),
+                       0.0)
+
+
+def coordinate_median(x: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median over member rows along axis 0 (even counts
+    average the two middle values; empty coordinates give 0)."""
+    x = x.float()
+    member = torch.broadcast_to(member.bool(), x.shape)
+    k = member.sum(0)
+    s = torch.sort(torch.where(member, x, torch.inf), dim=0, stable=True)[0]
+    lo = torch.gather(s, 0, torch.clamp((k - 1) // 2, min=0)[None])
+    hi = torch.gather(s, 0, torch.clamp(k // 2, min=0)[None])
+    return torch.where(k > 0, 0.5 * (lo + hi)[0], 0.0)
+
+
+def group_pairwise_sq(layout: mdlora.GroupLayout, deltas: Any) -> torch.Tensor:
+    """[K, K, G]: ||delta_i - delta_j||^2 restricted to each group, over
+    the layout's three leaf classes (fusion row blocks, layer-stacked
+    slices, whole leaves).
+
+    Exactly symmetric and free of atomics on every device: Krum's scores
+    tie by construction (two members of a 2- or 3-client cohort score each
+    other's distance), and its first-index tie-break must see equal
+    values, as the reference's does."""
+    acc = None
+    for p, leaf in leaves_with_path(deltas):
+        x = leaf.float()
+        K = x.shape[0]
+        if acc is None:
+            acc = torch.zeros((K, K, layout.G), device=x.device)
+        d = x[:, None] - x[None, :]  # [K, K, ...]
+        if p == layout.fusion_a_path:  # contiguous row blocks, one group each
+            per = d.square().sum(dim=tuple(range(3, d.dim())))  # [K, K, D]
+            for s, e, g in layout.fusion_rows:
+                acc[:, :, g] += per[:, :, s:e].sum(-1)
+        elif p in layout.leaf_axis0_groups:  # one group per slice, distinct
+            ids = layout.split_index(p, leaf.shape[1], leaf.device)
+            acc[:, :, ids] += d.square().sum(dim=tuple(range(3, d.dim())))
+        elif p in layout.leaf_group:
+            acc[:, :, layout.leaf_group[p]] += d.square().sum(
+                dim=tuple(range(2, d.dim())))
+    return 0.5 * (acc + acc.transpose(0, 1))
+
+
+def krum_select(d2: torch.Tensor, member: torch.Tensor,
+                f: int) -> torch.Tensor:
+    """Blockwise Krum (Blanchard et al., NeurIPS'17): per group, score_i =
+    the summed distances to i's k - f - 2 nearest co-members (clamped to
+    [1, max(k-1, 1)]); the lowest-scoring member (first on ties) is
+    selected -> [G] int64 client row (0 for an empty group)."""
+    member = member.bool()
+    K = member.shape[0]
+    k = member.sum(0)  # [G]
+    eye = torch.eye(K, dtype=torch.bool, device=member.device)
+    pair = member[:, None, :] & member[None, :, :] & ~eye[:, :, None]
+    ds = torch.sort(torch.where(pair, d2, torch.inf), dim=1, stable=True)[0]
+    csum = torch.cumsum(torch.where(torch.isfinite(ds), ds, 0.0), dim=1)
+    nn = torch.minimum(torch.clamp(k - f - 2, min=1),
+                       torch.clamp(k - 1, min=1))  # [G]
+    idx = (nn - 1)[None, None, :].expand(K, 1, member.shape[1])
+    score = torch.gather(csum, 1, idx)[:, 0, :]  # [K, G]
+    return torch.argmin(torch.where(member, score, torch.inf), dim=0)
+
+
+def robust_combine(layout: mdlora.GroupLayout, deltas: Any, W: torch.Tensor,
+                   kind: str, trim_frac: float = 0.1,
+                   krum_f: int = 1) -> Any:
+    """Robust replacement for ``weighted_combine``: per-group location
+    estimates of the member deltas (membership = W > 0), at the Eq. 3
+    mean's scale. "krum" takes the selected member's block verbatim."""
+    if kind not in ROBUST_AGGREGATORS:
+        raise ValueError(f"robust kind must be one of {ROBUST_AGGREGATORS}, "
+                         f"got {kind!r}")
+    W = W.float()
+    if kind == "mean":
+        return mdlora.weighted_combine(layout, deltas, W)
+    if kind == "krum":
+        sel = krum_select(group_pairwise_sq(layout, deltas), W > 0, krum_f)
+        W_sel = torch.zeros_like(W)
+        W_sel[sel, torch.arange(W.shape[1], device=W.device)] = (
+            (W > 0).any(0).float())
+        return mdlora.weighted_combine(layout, deltas, W_sel)
+
+    def reduce(p, leaf):
+        x = leaf.float()
+        idx = layout.split_index(p, leaf.shape[1], leaf.device)
+        if idx is not None:
+            w = W[:, idx]
+            w = w.reshape(w.shape + (1,) * (x.dim() - 2))
+        elif p in layout.leaf_group:
+            w = W[:, layout.leaf_group[p]]
+            w = w.reshape(w.shape + (1,) * (x.dim() - 1))
+        else:
+            return torch.zeros(leaf.shape[1:], device=leaf.device)
+        if kind == "trimmed":
+            return trimmed_mean(x, w, trim_frac)
+        return coordinate_median(x, w > 0)
+
+    return map_with_path(reduce, deltas)
+
+
 @dataclasses.dataclass
 class QuantizedStack:
     """A client-stacked int8 uplink payload: ``q`` leaves are [K, ...] int8
@@ -131,21 +267,28 @@ class CohortAggBuffer:
         finalize() -> (agg tree, divergence [G], cohort counts [G])
 
     The fusion leaf goes through ``kernels/cohort_agg`` (aggregate and
-    per-row sqsum/mean/count in one pass); every other leaf is a whole-leaf
-    group reduced with the same masked einsums as the reference. Empty
+    per-row sqsum/mean/count in one pass); Backbone 2's layer-stacked leaves
+    reduce per slice (one group per layer) and every other leaf is a
+    whole-leaf group, with the same masked einsums as the reference. Empty
     cohorts finalize to zero aggregate and zero divergence (frozen block).
+
+    ``robust`` ("mean" | "trimmed" | "median" | "krum") selects the
+    within-cohort estimate of the *aggregate*; the divergence statistics
+    stay the plain sufficient statistics, so a robust flush still runs the
+    fused kernel on the fusion leaf. Order statistics do not stream: a
+    robust buffer takes exactly one push per finalize.
     """
 
     def __init__(self, layout: mdlora.GroupLayout, proto: Any,
-                 robust: str = "mean"):
-        if robust != "mean":
-            raise NotImplementedError(
-                f"robust={robust!r}: only the weighted mean is ported")
-        if layout.leaf_axis0_groups:
-            raise NotImplementedError(
-                "layer-stacked groups (Backbone 2) are not ported to the "
-                "streaming buffer yet")
+                 robust: str = "mean", trim_frac: float = 0.1,
+                 krum_f: int = 1):
+        if robust not in ROBUST_AGGREGATORS:
+            raise ValueError(f"robust must be one of {ROBUST_AGGREGATORS}, "
+                             f"got {robust!r}")
         self.layout = layout
+        self.robust = robust
+        self.trim_frac = trim_frac
+        self.krum_f = krum_f
         self._proto = proto
         self.reset()
 
@@ -157,6 +300,7 @@ class CohortAggBuffer:
         dev = leaves(self._proto)[0].device
         self._sq = torch.zeros(self.layout.G, device=dev)
         self._cnt = torch.zeros(self.layout.G, device=dev)
+        self._pushes = 0
 
     def _commit(self, pairs: Any, sq: torch.Tensor, C: torch.Tensor) -> None:
         """Add one chunk: ``pairs`` has (aggregate, cohort sum) leaves."""
@@ -169,6 +313,12 @@ class CohortAggBuffer:
         """deltas: client-stacked tree ([K, ...] leaves); W/C: [K, G]
         combine weights and divergence-cohort mask for this chunk."""
         layout = self.layout
+        if self.robust != "mean":
+            if self._pushes > 0:
+                raise RuntimeError(
+                    f"robust={self.robust!r} aggregation needs the whole "
+                    "cohort in one push; chunked pushes are mean-only")
+            self._pushes += 1
         W, C = W.float(), C.float()
         sq = torch.zeros(layout.G, device=W.device)
 
@@ -182,6 +332,12 @@ class CohortAggBuffer:
                         C[:, rg].contiguous()))
                 sq.index_add_(0, rg, sq_rows)
                 return agg, mean_rows * cnt_rows[:, None]
+            if p in layout.leaf_axis0_groups:
+                ids = layout.split_index(p, leaf.shape[1], leaf.device)
+                per_l = x.square().sum(dim=tuple(range(2, x.dim())))  # [K, L]
+                sq.index_add_(0, ids, (per_l * C[:, ids]).sum(0))
+                return (torch.einsum("nl,nl...->l...", W[:, ids], x),
+                        torch.einsum("nl,nl...->l...", C[:, ids], x))
             if p in layout.leaf_group:
                 g = layout.leaf_group[p]
                 per_n = x.square().sum(dim=tuple(range(1, x.dim())))  # [K]
@@ -191,7 +347,12 @@ class CohortAggBuffer:
             zero = torch.zeros(leaf.shape[1:], device=leaf.device)
             return zero, zero
 
-        self._commit(map_with_path(reduce, deltas), sq, C)
+        pairs = map_with_path(reduce, deltas)
+        if self.robust != "mean":  # only the aggregate is replaced
+            agg = robust_combine(layout, deltas, W, self.robust,
+                                 self.trim_frac, self.krum_f)
+            pairs = tree_map(lambda pr, a: (a, pr[1]), pairs, agg)
+        self._commit(pairs, sq, C)
 
     def push_quantized(self, q: Any, scales: Any, W: torch.Tensor,
                        C: torch.Tensor, staleness: torch.Tensor | None = None,
@@ -204,7 +365,10 @@ class CohortAggBuffer:
         defer_scale=True)`` when the discount takes part in normalization:
         the effective weight W * 1/(1+staleness)^exponent is applied here,
         inside the fused kernel for the fusion leaf and folded into the [K]
-        einsum weights for every other leaf.
+        einsum weights for every other leaf. A robust buffer cannot take
+        order statistics over codes with per-client scales: it dequantizes
+        the chunk (fresh tensors) and takes ``push`` with the discount
+        folded into W.
         """
         layout = self.layout
         W, C = W.float(), C.float()
@@ -212,6 +376,10 @@ class CohortAggBuffer:
             staleness = torch.zeros(W.shape[0], device=W.device)
         staleness = staleness.float()
         disc = staleness_discount_ref(staleness, exponent)
+        if self.robust != "mean":
+            self.push(dist.dequantize_int8_stacked(q, scales),
+                      W * disc[:, None], C)
+            return
         sq = torch.zeros(layout.G, device=W.device)
 
         def reduce(p, leaf, f):
@@ -225,9 +393,18 @@ class CohortAggBuffer:
                         staleness.contiguous(), exponent))
                 sq.index_add_(0, rg, sq_rows)
                 return agg, mean_rows * cnt_rows[:, None]
+            x = leaf.float()
+            if p in layout.leaf_axis0_groups:
+                ids = layout.split_index(p, leaf.shape[1], leaf.device)
+                per_l = x.square().sum(dim=tuple(range(2, x.dim())))  # [K, L]
+                sq.index_add_(0, ids, (per_l * C[:, ids]
+                                       * f.square()[:, None]).sum(0))
+                return (torch.einsum("nl,nl...->l...",
+                                     W[:, ids] * (disc * f)[:, None], x),
+                        torch.einsum("nl,nl...->l...",
+                                     C[:, ids] * f[:, None], x))
             if p in layout.leaf_group:
                 g = layout.leaf_group[p]
-                x = leaf.float()
                 per_n = x.square().sum(dim=tuple(range(1, x.dim())))  # [K]
                 sq[g] += (per_n * C[:, g] * f.square()).sum()
                 return (torch.einsum("n,n...->...", W[:, g] * disc * f, x),

@@ -14,13 +14,32 @@ cohort aggregation:
     so rare-modality blocks aggregate only within their possession cohort
     and an empty cohort freezes its block. Every flush launches one fused
     cohort-agg kernel on the fusion leaf: the fp32 kernel, or with
-    ``uplink_codec="int8"`` the quantized-ingest kernel.
+    ``uplink_codec="int8"`` the quantized-ingest kernel (a robust reducer
+    dequantizes first and takes the fp32 kernel for the statistics).
 
-Ported: the heap runtime ``AsyncFedRun`` on Backbone 1 with both uplink
-codecs (client-side int8 error feedback included). Not ported yet, and
-refused by ``_check_strategy`` or the buffer: fault injection, time-varying
-modality schedules, selective upload, robust reducers, HeLoRA rank caps,
-Backbone 2's layer-stacked groups; the vectorized runtime waits as well.
+Two runtimes share one server flush (``_ServerFlushMixin._flush_arrays``):
+
+``AsyncFedRun``           the event loop: a heap of per-client ``_Pending``
+                          updates, gradients computed eagerly at dispatch.
+``VectorizedAsyncFedRun`` the structure-of-arrays fleet simulator
+                          (sim/fleet.py): per-client state in flat arrays,
+                          vectorized next-K extraction with the heap's FIFO
+                          tie-break, and ``grad_mode``:
+
+    "dispatch"  gradients at dispatch for every dispatched client: event for
+                event the heap loop's history (small fleets).
+    "cohort"    the whole fleet's time, energy and staleness are simulated,
+                but local training runs only for the K flushed clients, each
+                from the ring snapshot of the version it pulled, with
+                counter-based batch draws (seed, client, ticket).
+    "none"      system simulation only: no gradients, loss NaN.
+
+Both take fault injection (``faults``: dropout, stalls, Byzantine
+corruption before the int8 quantization), the robust cohort reducers of the
+strategy, and HeLoRA rank caps (the heap loop only, as in the reference);
+the vectorized one also churn and re-arrivals. Not ported: time-varying
+modality schedules and FedMFS selective upload, refused by
+``_check_strategy``.
 """
 from __future__ import annotations
 
@@ -33,15 +52,20 @@ import torch
 from repro_torch import dist
 from repro_torch.core import aggregation as AG
 from repro_torch.core import mdlora
-from repro_torch.core.engine import (AllocPlan, FedConfig, allocate,
-                                     allocate_rows, draw_client_batches,
-                                     make_local_update, plan_allocation,
-                                     simulated_flops)
+from repro_torch.core.engine import (AllocPlan, FedConfig, _rank_gates,
+                                     allocate, allocate_rows,
+                                     draw_client_batches, make_local_update,
+                                     plan_allocation, simulated_flops)
 from repro_torch.core.strategies import AsyncStrategy
 from repro_torch.core.tasks import MMTask
-from repro_torch.sim import FleetConfig
+from repro_torch.sim import FaultModel, FaultRuntime, FleetConfig
+from repro_torch.sim import timing as T
 from repro_torch.sim.events import AsyncTrace, EventQueue, completion_times
+from repro_torch.sim.fleet import (FleetState, PopulationModel,
+                                   pack_group_bits, unpack_group_bits)
 from repro_torch.tree import leaves, tree_map
+
+GRAD_MODES = ("dispatch", "cohort", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +80,14 @@ class AsyncFedConfig(FedConfig):
     # with error feedback and the server ingests the int8 payload natively
     # (dequantization and staleness discount fused into the reduction)
     uplink_codec: str = "none"
-    faults: Any = None  # fault injection: not ported, must stay None
+    # --- vectorized fleet runtime (VectorizedAsyncFedRun) ---
+    grad_mode: str = "dispatch"  # dispatch | cohort | none (module doc)
+    snapshot_ring: int = 8  # retained model versions for cohort gradients
+    churn_rate: float = 0.0  # departures per alive client per sim-second
+    arrival_rate: float = 0.0  # re-arrivals per departed client per sim-sec
+    # fleet fault injection (sim/faults.py): Byzantine delta corruption,
+    # mid-round dropout, stalls. None (or byzantine_frac = 0) = fault-free
+    faults: FaultModel | None = None
     modality_schedule: Any = None  # streaming masks: not ported, must be None
 
 
@@ -89,14 +120,31 @@ def _check_strategy(strategy: AsyncStrategy, fed: AsyncFedConfig) -> None:
     if fed.uplink_codec not in UPLINK_CODECS:
         raise ValueError(f"uplink_codec must be one of {UPLINK_CODECS}, "
                          f"got {fed.uplink_codec!r}")
-    for what, unported in (("robust reducers", strategy.robust != "mean"),
-                           ("HeLoRA rank caps", bool(strategy.rank_caps)),
-                           ("selective upload", strategy.selective),
-                           ("fault injection", fed.faults is not None),
+    if strategy.robust not in AG.ROBUST_AGGREGATORS:
+        raise ValueError(f"robust must be one of {AG.ROBUST_AGGREGATORS}, "
+                         f"got {strategy.robust!r}")
+    if strategy.selective and not 0.0 < strategy.comm_budget <= 1.0:
+        raise ValueError(f"comm_budget must be in (0, 1], "
+                         f"got {strategy.comm_budget}")
+    for what, unported in (("selective upload", strategy.selective),
                            ("modality schedules",
                             fed.modality_schedule is not None)):
         if unported:
             raise NotImplementedError(f"{what} are not ported yet")
+
+
+def _make_fault_runtime(fed: AsyncFedConfig,
+                        fleet: FleetConfig) -> FaultRuntime | None:
+    if fed.faults is not None and fed.faults.active:
+        return FaultRuntime(fed.faults, fleet.modality_mask)
+    return None
+
+
+def _make_aggbuf(task: MMTask, trainable0: Any,
+                 strategy: AsyncStrategy) -> AG.CohortAggBuffer:
+    return AG.CohortAggBuffer(task.layout, trainable0, robust=strategy.robust,
+                              trim_frac=strategy.trim_frac,
+                              krum_f=strategy.krum_f)
 
 
 def _history_init() -> dict:
@@ -119,12 +167,17 @@ class _Pending:
     t_comm: float
     upload_bytes: float
     mmask_row: np.ndarray  # [M] modality mask at dispatch
+    # fault-injected mid-round crash: the completion event still fires (it
+    # times the client's reboot and redispatch) but is never absorbed: no
+    # buffer entry, no energy or upload accounting, no progress
+    dropped: bool = False
 
 
 class _ServerFlushMixin:
-    """The server-side flush. Expects ``task/strategy/fleet/fed/state/
-    trace/history/aggbuf`` attributes on self; ``aggbuf`` is the
-    run-lifetime CohortAggBuffer, reset between flushes."""
+    """The server-side flush, shared by both runtimes. Expects
+    ``task/strategy/fleet/fed/state/trace/history/aggbuf`` attributes on
+    self; ``aggbuf`` is the run-lifetime CohortAggBuffer, reset between
+    flushes."""
 
     @property
     def _uplink_bytes_per_param(self) -> float:
@@ -132,16 +185,18 @@ class _ServerFlushMixin:
         return 1.0 if self.fed.uplink_codec == "int8" else 4.0
 
     def _flush_arrays(self, deltas: Any, S: np.ndarray,
-                      client_ids: np.ndarray, losses: np.ndarray,
+                      client_ids: np.ndarray, losses: np.ndarray | None,
                       staleness: np.ndarray,
                       mmask_rows: np.ndarray | None = None) -> dict:
         """Fold one buffered cohort into the global model (one server
         version). ``deltas``: client-stacked tree ([K, ...] leaves) or an
         ``aggregation.QuantizedStack``; rows aligned with ``S``/
-        ``client_ids``/``losses``/``staleness``, sorted by client id."""
+        ``client_ids``/``losses``/``staleness``, sorted by client id.
+        ``deltas=None`` is a system-only flush (grad_mode "none"):
+        staleness and energy accounting advance, the model and divergence
+        state stay as they are, and the loss records as NaN."""
         task, fleet, fed = self.task, self.fleet, self.fed
         layout, state = task.layout, self.state
-        dev = leaves(state.trainable)[0].device
         K = len(client_ids)
         quant = isinstance(deltas, AG.QuantizedStack)
         staleness = np.asarray(staleness, np.float64)
@@ -152,58 +207,65 @@ class _ServerFlushMixin:
             fresh = staleness <= self.strategy.max_staleness
             S = S * fresh[:, None]
 
-        f32 = dict(dtype=torch.float32, device=dev)
-        trained = torch.as_tensor(S, **f32)
-        mmask = torch.as_tensor(mmask_rows, **f32)
-        stale_t = torch.as_tensor(staleness, **f32)
-        a = self.strategy.staleness_exponent
-        scale = None if a == 0.0 else AG.staleness_discounts(stale_t, a)
-        # quantized ingest applies the discount *inside* the fused
-        # reduction, so keep it out of the numerator (defer_scale)
-        wkw = dict(client_scale=scale, defer_scale=quant)
-        if self.strategy.agg == "cohort":
-            W = AG.cohort_weights(layout, trained, mmask, **wkw)
-        else:  # fedavg: every (fresh) buffered client into every group
-            ones = torch.as_tensor(
-                np.tile(layout.sizes[None, :] > 0, (K, 1)) & fresh[:, None],
-                **f32)
-            W = AG.cohort_weights(layout, ones, torch.ones_like(mmask), **wkw)
+        if deltas is not None:
+            dev = leaves(state.trainable)[0].device
+            f32 = dict(dtype=torch.float32, device=dev)
+            trained = torch.as_tensor(S, **f32)
+            mmask = torch.as_tensor(mmask_rows, **f32)
+            stale_t = torch.as_tensor(staleness, **f32)
+            a = self.strategy.staleness_exponent
+            scale = None if a == 0.0 else AG.staleness_discounts(stale_t, a)
+            # quantized ingest applies the discount *inside* the fused
+            # reduction, so keep it out of the numerator (defer_scale)
+            wkw = dict(client_scale=scale, defer_scale=quant)
+            if self.strategy.agg == "cohort":
+                W = AG.cohort_weights(layout, trained, mmask, **wkw)
+            else:  # fedavg: every (fresh) buffered client into every group
+                ones = torch.as_tensor(
+                    np.tile(layout.sizes[None, :] > 0, (K, 1))
+                    & fresh[:, None], **f32)
+                W = AG.cohort_weights(layout, ones, torch.ones_like(mmask),
+                                      **wkw)
 
-        # divergence cohort: possession AND trained (Eq. 5 on the buffer)
-        C = torch.as_tensor(layout.accessible(mmask_rows) & (S > 0), **f32)
+            # divergence cohort: possession AND trained (Eq. 5 on the buffer)
+            C = torch.as_tensor(layout.accessible(mmask_rows) & (S > 0),
+                                **f32)
 
-        self.aggbuf.reset()
-        if quant:
-            self.aggbuf.push_quantized(deltas.q, deltas.scales, W, C,
-                                       stale_t, a)
-        else:
-            self.aggbuf.push(deltas, W, C)
-        agg_tree, d, cnt = self.aggbuf.finalize()
+            self.aggbuf.reset()
+            if quant:
+                self.aggbuf.push_quantized(deltas.q, deltas.scales, W, C,
+                                           stale_t, a)
+            else:
+                self.aggbuf.push(deltas, W, C)
+            agg_tree, d, cnt = self.aggbuf.finalize()
 
-        state.trainable = tree_map(
-            lambda t, g: (t.float() + fed.server_lr * g).to(t.dtype),
-            state.trainable, agg_tree)
+            state.trainable = tree_map(
+                lambda t, g: (t.float() + fed.server_lr * g).to(t.dtype),
+                state.trainable, agg_tree)
 
-        d_np = d.cpu().numpy()
-        touched = cnt.cpu().numpy() > 0
-        state.dbar[touched] = (fed.gamma * d_np
-                               + (1.0 - fed.gamma) * state.dbar)[touched]
-        # magnitude EMA diagnostic over the K-client buffer (dequantizes the
-        # int8 stack for stats only; the reduction above never built it)
-        norm_src = (dist.dequantize_int8_stacked(deltas.q, deltas.scales)
-                    if quant else deltas)
-        per_client_norms = mdlora.group_norms(layout, norm_src,
-                                              batch_dims=1).cpu().numpy()
-        denom = np.maximum(S.sum(0), 1)
-        mag = (per_client_norms * S).sum(0) / denom
-        sel = S.any(0)
-        state.mag_ema[sel] = (0.5 * state.mag_ema + 0.5 * mag)[sel]
+            d_np = d.cpu().numpy()
+            touched = cnt.cpu().numpy() > 0
+            state.dbar[touched] = (fed.gamma * d_np
+                                   + (1.0 - fed.gamma) * state.dbar)[touched]
+            # magnitude EMA diagnostic over the K-client buffer (dequantizes
+            # the int8 stack for stats only; the reduction never built it)
+            norm_src = (dist.dequantize_int8_stacked(deltas.q, deltas.scales)
+                        if quant else deltas)
+            per_client_norms = mdlora.group_norms(layout, norm_src,
+                                                  batch_dims=1).cpu().numpy()
+            denom = np.maximum(S.sum(0), 1)
+            mag = (per_client_norms * S).sum(0) / denom
+            sel = S.any(0)
+            state.mag_ema[sel] = (0.5 * state.mag_ema + 0.5 * mag)[sel]
+            loss = float(np.mean(losses))
+        else:  # system-only simulation: no gradient work this flush
+            d_np = np.zeros(layout.G)
+            loss = float("nan")
 
         state.round += 1
         self.trace.flushes += 1
         rec = {"flush": state.round, "sim_time_s": state.sim_time,
-               "loss": float(np.mean(losses)),
-               "staleness_mean": float(staleness.mean()),
+               "loss": loss, "staleness_mean": float(staleness.mean()),
                "energy_j": self.trace.energy_j,
                "upload_mb": self.trace.upload_mb,
                "selected_frac": float(S.mean()), "divergence": d_np}
@@ -238,6 +300,7 @@ class AsyncFedRun(_ServerFlushMixin):
     fed: AsyncFedConfig
     state: AsyncFedState
     local_update: Any
+    rank_gate: Any  # [N]-stacked HeLoRA gates, None without rank caps
     queue: EventQueue
     buffer: list
     trace: AsyncTrace
@@ -247,6 +310,7 @@ class AsyncFedRun(_ServerFlushMixin):
     # quantization error stays on the device and is added to its next
     # update, so the compressed stream telescopes to the uncompressed one
     ef: dict = dataclasses.field(default_factory=dict)
+    fx: FaultRuntime | None = None  # fault injection (fed.faults)
     # fleet-static allocation inputs (None for alloc="random", which redraws
     # fleet-shaped noise per dispatch through allocate() to keep its stream)
     plan: AllocPlan | None = None
@@ -262,8 +326,10 @@ class AsyncFedRun(_ServerFlushMixin):
                 if strategy.alloc != "random" else None)
         return cls(task, strategy, fleet, fed, state,
                    make_local_update(task, fed, strategy.prox_mu),
-                   EventQueue(), [], trace, _history_init(),
-                   AG.CohortAggBuffer(task.layout, trainable0), plan=plan)
+                   _rank_gates(trainable0, strategy, fleet), EventQueue(),
+                   [], trace, _history_init(),
+                   _make_aggbuf(task, trainable0, strategy),
+                   fx=_make_fault_runtime(fed, fleet), plan=plan)
 
     # -- client dispatch ------------------------------------------------------
 
@@ -285,6 +351,7 @@ class AsyncFedRun(_ServerFlushMixin):
             S = S_full[clients]  # [K, G]
         else:
             S = allocate_rows(self.plan, self.strategy, state, clients)
+        fault = self.fx.on_dispatch(clients) if self.fx is not None else None
 
         steps = fed.local_epochs * fed.steps_per_epoch
         batches = draw_client_batches(state.rng, dataset, clients, steps,
@@ -292,8 +359,15 @@ class AsyncFedRun(_ServerFlushMixin):
         start = tree_map(lambda g: g.expand((K,) + g.shape), state.trainable)
         gates = torch.as_tensor(S, dtype=torch.float32, device=dev)
         mmasks = torch.as_tensor(live_mm, dtype=torch.float32, device=dev)
+        rank_gate = None
+        if self.rank_gate is not None:
+            rows = torch.as_tensor(clients, device=dev)
+            rank_gate = tree_map(lambda x: x[rows], self.rank_gate)
         deltas, losses = self.local_update(start, batches, mmasks, gates,
-                                           fed.lr)
+                                           fed.lr, rank_gate)
+        if fault is not None:  # corrupt pre-quantization, like a real client
+            dropped, slow, byz_rows, tickets = fault
+            deltas = self.fx.corrupt(deltas, byz_rows, clients, tickets)
 
         trained_fl, fixed_fl = simulated_flops(task, fed, S)
         upload = ((np.asarray(S, np.float64) @ layout.sizes)
@@ -301,6 +375,9 @@ class AsyncFedRun(_ServerFlushMixin):
         dur, t_comp, t_comm = completion_times(
             fleet, clients, trained_fl, fixed_fl, upload, fed.t_overhead,
             fed.utilization, fed.jitter_sigma, state.rng)
+        if fault is not None:  # stalls stretch compute time (and its energy)
+            dur = dur + t_comp * (slow - 1.0)
+            t_comp = t_comp * slow
 
         quantize = fed.uplink_codec == "int8"
         losses_np = losses.detach().cpu().numpy()
@@ -312,7 +389,8 @@ class AsyncFedRun(_ServerFlushMixin):
                 d_i = (q_i, s_i)
             pend = _Pending(int(c), state.round, d_i, float(losses_np[i]),
                             S[i], float(t_comp[i]), float(t_comm[i]),
-                            float(upload[i]), live_mm[i])
+                            float(upload[i]), live_mm[i],
+                            dropped=fault is not None and bool(dropped[i]))
             self.queue.push(now + dur[i], int(c), payload=pend)
 
     # -- server flush ---------------------------------------------------------
@@ -359,6 +437,8 @@ class AsyncFedRun(_ServerFlushMixin):
             for ev in events:
                 pend: _Pending = ev.payload
                 completed.append(ev.client)
+                if pend.dropped:  # crash: reboot + redispatch, nothing lands
+                    continue
                 self.buffer.append(pend)
                 self.trace.record_completion(fleet, ev.client, pend.t_comp,
                                              pend.t_comm, pend.upload_bytes)
@@ -373,6 +453,394 @@ class AsyncFedRun(_ServerFlushMixin):
                 self._dispatch(np.array(completed), now, dataset)
         self.trace.sim_time = self.state.sim_time
         if not self.history["f1"]:
+            self.history["f1"].append(self.evaluate(dataset))
+            self.history["f1_flush"].append(self.state.round)
+        return self.history
+
+
+# ---------------------------------------------------------------------------
+# the vectorized fleet runtime
+# ---------------------------------------------------------------------------
+
+
+class VectorizedAsyncFedRun(_ServerFlushMixin):
+    """Structure-of-arrays async runtime for fleet-scale N (sim/fleet.py).
+
+    The protocol of ``AsyncFedRun`` -- FedBuff buffer-K flushes with
+    staleness-discounted cohort aggregation -- with all per-client system
+    state in flat arrays, events from vectorized next-K extraction instead
+    of a heap, and gradient work decoupled from the system simulation by
+    ``fed.grad_mode`` (module docstring). With ``grad_mode="dispatch"`` the
+    flush history (loss, staleness, selected_frac, sim_time) is event for
+    event the heap loop's.
+    """
+
+    def __init__(self, task: MMTask, strategy: AsyncStrategy,
+                 fleet: FleetConfig, fed: AsyncFedConfig,
+                 state: AsyncFedState, local_update: Any, plan: AllocPlan,
+                 fstate: FleetState, population: PopulationModel | None,
+                 trace: AsyncTrace, history: dict,
+                 aggbuf: AG.CohortAggBuffer, proto: Any):
+        self.task = task
+        self.strategy = strategy
+        self.fleet = fleet
+        self.fed = fed
+        self.state = state
+        self.local_update = local_update
+        self.plan = plan
+        self.fstate = fstate
+        self.population = population
+        self.trace = trace
+        self.history = history
+        self.aggbuf = aggbuf
+        self.proto = proto
+        self.grad_mode = fed.grad_mode
+        self.device = leaves(proto)[0].device
+        self.ring_clamped = 0  # cohort-mode pulls older than the ring
+        # fault injection: drop/stall/corruption flags are drawn at dispatch
+        # (counter-based, as in the heap loop) and read at absorb/flush time
+        self.fx = _make_fault_runtime(fed, fleet)
+        self._drop_next = np.zeros(fleet.N, bool)  # in-flight cycle crashes
+        self._fault_ticket = np.zeros(fleet.N, np.int64)  # in-flight ticket
+        # buffered (completed, not yet flushed) client state, by column
+        self._buf_client: list[np.ndarray] = []
+        self._buf_version: list[np.ndarray] = []
+        self._buf_bits: list[np.ndarray] = []
+        self._buf_mmbits: list[np.ndarray] = []  # modality masks
+        self._buf_ticket: list[np.ndarray] = []
+        self._buf_fticket: list[np.ndarray] = []  # fault tickets (fx only)
+        self._buf_loss: list[np.ndarray] = []
+        self._buf_deltas: list[Any] = []
+        self._buf_scales: list[Any] = []  # uplink_codec="int8" only
+        self._buf_count = 0
+        # dispatch-mode in-flight updates ([N, ...] leaves on the device):
+        # int8 codes with uplink_codec="int8", their [N] per-leaf scales in
+        # ``_pend_scales`` and the fp32 [N, ...] error-feedback rows in
+        # ``_ef``
+        self._pend_deltas: Any = None
+        self._pend_loss: np.ndarray | None = None
+        self._pend_scales: Any = None
+        self._ef: Any = None
+        # cohort-mode ring of the last ``snapshot_ring`` model versions,
+        # written in place (each slot a copy of the trainable)
+        self._ring: Any = None
+        if fed.grad_mode == "cohort":
+            R = max(1, fed.snapshot_ring)
+            self._ring = tree_map(
+                lambda x: x.expand((R,) + x.shape).clone(), proto)
+        self._churn_rng = np.random.default_rng([fed.seed, 0x5EED])
+
+    @classmethod
+    def create(cls, task: MMTask, trainable0: Any, strategy: AsyncStrategy,
+               fleet: FleetConfig, fed: AsyncFedConfig
+               ) -> VectorizedAsyncFedRun:
+        _check_strategy(strategy, fed)
+        if fed.grad_mode not in GRAD_MODES:
+            raise ValueError(f"grad_mode must be one of {GRAD_MODES}, "
+                             f"got {fed.grad_mode!r}")
+        if strategy.rank_caps:
+            raise ValueError("rank_caps build an [N, ...]-stacked gate tree "
+                             "-- unsupported at fleet scale")
+        if strategy.alloc == "random":
+            raise ValueError("alloc='random' draws fleet-shaped noise per "
+                             "dispatch; use the event-loop AsyncFedRun")
+        state = _make_state(task.layout.G, trainable0, fed.seed)
+        trace = AsyncTrace()
+        trace.init_fleet(fleet.N)
+        plan = plan_allocation(strategy, task, fleet, fed, task.layout.flops)
+        pop = (PopulationModel(fed.churn_rate, fed.arrival_rate)
+               if (fed.churn_rate > 0.0 or fed.arrival_rate > 0.0) else None)
+        lu = (make_local_update(task, fed, strategy.prox_mu)
+              if fed.grad_mode != "none" else None)
+        return cls(task, strategy, fleet, fed, state, lu, plan,
+                   FleetState.create(fleet.N), pop, trace, _history_init(),
+                   _make_aggbuf(task, trainable0, strategy), trainable0)
+
+    # -- client dispatch ------------------------------------------------------
+
+    def _dispatch_vec(self, idx: np.ndarray, now: float, dataset) -> None:
+        """Pull the current model to clients ``idx`` and schedule their
+        completions: array-resident, O(batch) given the AllocPlan."""
+        task, fed, fleet = self.task, self.fed, self.fleet
+        layout, state = task.layout, self.state
+        idx = np.asarray(idx, np.int64)
+        B = len(idx)
+        if B == 0:
+            return
+        live_mm = fleet.modality_mask[idx]
+        S = allocate_rows(self.plan, self.strategy, state, idx)  # [B, G]
+        fault = None
+        if self.fx is not None:
+            fault = self.fx.on_dispatch(idx)
+            self._drop_next[idx] = fault[0]
+            self._fault_ticket[idx] = fault[3]
+
+        if self.grad_mode == "dispatch":
+            self._train_at_dispatch(idx, S, live_mm, fault, dataset)
+
+        trained_fl, fixed_fl = simulated_flops(task, fed, S)
+        upload = ((np.asarray(S, np.float64) @ layout.sizes)
+                  * self._uplink_bytes_per_param)
+        dur, t_comp, t_comm = T.cycle_times(
+            fleet, idx, trained_fl, fixed_fl, upload, fed.t_overhead,
+            fed.utilization, fed.jitter_sigma, state.rng)
+        if fault is not None:  # stalls stretch compute time (and energy)
+            slow = fault[1]
+            dur = dur + t_comp * (slow - 1.0)
+            t_comp = t_comp * slow
+        self.fstate.dispatch(idx, now, state.round, pack_group_bits(S),
+                             dur, t_comp, t_comm, upload)
+        self.fstate.mod_bits[idx] = pack_group_bits(live_mm)
+
+    def _train_at_dispatch(self, idx: np.ndarray, S: np.ndarray,
+                           live_mm: np.ndarray, fault, dataset) -> None:
+        """grad_mode "dispatch": local training for the dispatched clients
+        now, stored (int8-compressed with the int8 uplink) in the [N, ...]
+        pending rows until their completion is flushed."""
+        fed, state, dev = self.fed, self.state, self.device
+        B = len(idx)
+        steps = fed.local_epochs * fed.steps_per_epoch
+        batches = draw_client_batches(state.rng, dataset, idx, steps,
+                                      fed.batch_size, dev)
+        start = tree_map(lambda g: g.expand((B,) + g.shape), state.trainable)
+        f32 = dict(dtype=torch.float32, device=dev)
+        deltas, losses = self.local_update(
+            start, batches, torch.as_tensor(live_mm, **f32),
+            torch.as_tensor(S, **f32), fed.lr)
+        if fault is not None:  # corrupt pre-quantization (heap parity)
+            deltas = self.fx.corrupt(deltas, fault[2], idx, fault[3])
+        quantize = fed.uplink_codec == "int8"
+        N = self.fleet.N
+        if self._pend_deltas is None:
+            dtype = torch.int8 if quantize else torch.float32
+            self._pend_deltas = tree_map(
+                lambda x: torch.zeros((N,) + x.shape, dtype=dtype,
+                                      device=dev), self.proto)
+            self._pend_loss = np.full(N, np.nan)
+            if quantize:
+                self._pend_scales = tree_map(
+                    lambda x: torch.zeros(N, **f32), self.proto)
+                self._ef = tree_map(
+                    lambda x: torch.zeros((N,) + x.shape, **f32), self.proto)
+        rows = torch.as_tensor(idx, device=dev)
+
+        def put(buf, v):
+            buf[rows] = v
+            return buf
+
+        if quantize:  # compress client-side, EF residual stays per row
+            q, sc, resid = dist.quantize_int8_stacked(
+                deltas, tree_map(lambda r: r[rows], self._ef))
+            self._pend_deltas = tree_map(put, self._pend_deltas, q)
+            self._pend_scales = tree_map(put, self._pend_scales, sc)
+            self._ef = tree_map(put, self._ef, resid)
+        else:
+            self._pend_deltas = tree_map(put, self._pend_deltas, deltas)
+        self._pend_loss[idx] = losses.detach().cpu().numpy()
+
+    # -- completion absorption / flush ----------------------------------------
+
+    def _buf_append(self, chunk: np.ndarray) -> None:
+        fs = self.fstate
+        self._buf_client.append(chunk.copy())
+        self._buf_version.append(fs.version[chunk].copy())
+        self._buf_bits.append(fs.group_bits[chunk].copy())
+        self._buf_mmbits.append(fs.mod_bits[chunk].copy())
+        self._buf_ticket.append(fs.updates[chunk].copy())
+        if self.fx is not None:  # the cycle's fault ticket, before redispatch
+            self._buf_fticket.append(self._fault_ticket[chunk].copy())
+        if self.grad_mode == "dispatch":
+            self._buf_loss.append(self._pend_loss[chunk].copy())
+            rows = torch.as_tensor(chunk, device=self.device)
+            # index-gathers: fresh tensors, never views of the store
+            self._buf_deltas.append(
+                tree_map(lambda x: x[rows], self._pend_deltas))
+            if self._pend_scales is not None:
+                self._buf_scales.append(
+                    tree_map(lambda x: x[rows], self._pend_scales))
+        self._buf_count += len(chunk)
+
+    def _cohort_update(self, dataset, ids: np.ndarray, versions: np.ndarray,
+                       tickets: np.ndarray, S: np.ndarray,
+                       mmask_rows: np.ndarray) -> tuple[Any, np.ndarray]:
+        """Cohort-sampled gradients: local updates for the K flushed clients
+        only, each from the ring snapshot of the version it pulled (pulls
+        older than the ring clamp to the oldest retained snapshot;
+        ``ring_clamped`` counts those). ``start`` is an index-gather of the
+        ring, a copy: the ring's next in-place write cannot reach it."""
+        fed, state, dev = self.fed, self.state, self.device
+        R = max(1, fed.snapshot_ring)
+        vmin = max(0, state.round - R + 1)
+        v_eff = np.maximum(versions, vmin)
+        self.ring_clamped += int(np.sum(v_eff != versions))
+        slots = torch.as_tensor(v_eff % R, device=dev)
+        start = tree_map(lambda x: x[slots], self._ring)
+
+        steps = fed.local_epochs * fed.steps_per_epoch
+        xs, ys = [], []
+        for c, t in zip(ids, tickets):  # counter-based draws: order-free
+            r = np.random.default_rng([fed.seed, int(c), int(t)])
+            src = int(c) % len(dataset.train_y)
+            bidx = r.integers(0, len(dataset.train_y[src]),
+                              size=(steps, fed.batch_size))
+            xs.append(dataset.train_x[src][bidx])
+            ys.append(dataset.train_y[src][bidx])
+        batches = {"x": torch.as_tensor(np.stack(xs), device=dev),
+                   "y": torch.as_tensor(np.stack(ys), dtype=torch.int64,
+                                        device=dev)}
+        f32 = dict(dtype=torch.float32, device=dev)
+        deltas, losses = self.local_update(
+            start, batches, torch.as_tensor(mmask_rows, **f32),
+            torch.as_tensor(S, **f32), fed.lr)
+        return deltas, losses.detach().cpu().numpy()
+
+    def _flush_vec(self, dataset) -> dict:
+        client = np.concatenate(self._buf_client)
+        order = np.argsort(client, kind="stable")  # client-id order (parity)
+        ids = client[order]
+        versions = np.concatenate(self._buf_version)[order]
+        tickets = np.concatenate(self._buf_ticket)[order]
+        S = unpack_group_bits(np.concatenate(self._buf_bits)[order],
+                              self.task.layout.G)
+        mmask_rows = unpack_group_bits(
+            np.concatenate(self._buf_mmbits)[order], self.fleet.M)
+        staleness = (self.state.round - versions).astype(np.float64)
+        quantize = self.fed.uplink_codec == "int8"
+        if self.grad_mode == "dispatch":
+            losses = np.concatenate(self._buf_loss)[order]
+            rows = torch.as_tensor(order, device=self.device)
+            cat = lambda *xs: torch.cat(xs, 0)[rows]  # noqa: E731
+            deltas = tree_map(cat, *self._buf_deltas)
+            if quantize:  # buffered rows are already the int8 uplink
+                deltas = AG.QuantizedStack(deltas,
+                                           tree_map(cat, *self._buf_scales))
+        elif self.grad_mode == "cohort":
+            deltas, losses = self._cohort_update(dataset, ids, versions,
+                                                 tickets, S, mmask_rows)
+            if self.fx is not None:  # corrupt with the *buffered* cycle's
+                # fault ticket: the client may already be redispatched
+                ftickets = np.concatenate(self._buf_fticket)[order]
+                deltas = self.fx.corrupt(deltas, self.fx.byz[ids], ids,
+                                         ftickets)
+            if quantize:  # cohort-sampled gradients quantize at the edge
+                # of the simulated uplink (no EF: each (client, ticket)
+                # update is drawn exactly once, at flush time)
+                qt, sc, _ = dist.quantize_int8_stacked(deltas)
+                deltas = AG.QuantizedStack(qt, sc)
+        else:
+            deltas, losses = None, None
+        for buf in (self._buf_client, self._buf_version, self._buf_bits,
+                    self._buf_mmbits, self._buf_ticket, self._buf_fticket,
+                    self._buf_loss, self._buf_deltas, self._buf_scales):
+            buf.clear()
+        self._buf_count = 0
+
+        rec = self._flush_arrays(deltas, S, ids, losses, staleness,
+                                 mmask_rows=mmask_rows)
+        if self.grad_mode == "cohort":  # retain the new version's snapshot
+            slot = self.state.round % max(1, self.fed.snapshot_ring)
+            for ring, t in zip(leaves(self._ring),
+                               leaves(self.state.trainable)):
+                ring[slot] = t
+        return rec
+
+    def _absorb(self, gidx: np.ndarray, dataset, K: int,
+                log_every: int) -> None:
+        """Absorb one timestamp group of completions: energy accounting,
+        buffer append, a flush at every K-th entry; chunked so the trace at
+        each flush matches the one-event-at-a-time loop."""
+        fleet, fs = self.fleet, self.fstate
+        pos = 0
+        while pos < len(gidx):
+            room = K - self._buf_count
+            chunk = gidx[pos:pos + room]
+            pos += len(chunk)
+            fs.complete(fleet, chunk)
+            self.trace.record_completions(fleet, chunk, fs.t_comp[chunk],
+                                          fs.t_comm[chunk],
+                                          fs.upload_bytes[chunk])
+            self._buf_append(chunk)
+            if self._buf_count >= K:
+                rec = self._flush_vec(dataset)
+                self._log_and_eval(rec, dataset if self.grad_mode != "none"
+                                   else None, log_every,
+                                   f"vec:{self.strategy.name}")
+
+    # -- the vectorized event loop --------------------------------------------
+
+    def run(self, dataset=None, total_updates: int | None = None,
+            log_every: int = 0) -> dict:
+        """Absorb ``total_updates`` completions (default rounds * N), with
+        vectorized next-K event extraction over the completion-time array.
+        ``dataset`` may be None with ``grad_mode="none"``."""
+        fed, fleet, state = self.fed, self.fleet, self.state
+        if self.grad_mode != "none" and dataset is None:
+            raise ValueError(f"grad_mode={self.grad_mode!r} needs a dataset")
+        total = (total_updates or fed.total_updates
+                 or fed.rounds * fleet.N)
+        K = max(1, min(self.strategy.buffer_size, fleet.N))
+        fs = self.fstate
+        if fs.in_flight == 0:
+            self._dispatch_vec(np.nonzero(fs.alive)[0], state.sim_time,
+                               dataset)
+        processed = 0
+        last_t = state.sim_time
+        while processed < total and fs.in_flight > 0:
+            times, cand = fs.peek_window(K, fed.t_overhead)
+            remaining = total - processed
+            if self.fx is not None:
+                # dropped completions never count toward ``total``: cut the
+                # window after the ``remaining``-th absorbable event, where
+                # the heap loop breaks mid-group (a plain prefix cut would
+                # split the redispatch batch and desync the jitter stream)
+                kept_c = np.cumsum(~self._drop_next[cand])
+                if len(cand) and kept_c[-1] > remaining:
+                    cut = int(np.searchsorted(kept_c, remaining)) + 1
+                    times, cand = times[:cut], cand[:cut]
+            elif len(cand) > remaining:
+                times, cand = times[:remaining], cand[:remaining]
+            fs.claim(cand)
+            arrivals: list[np.ndarray] = []
+            gstart = 0
+            while gstart < len(cand):
+                t0 = float(times[gstart])
+                gend = gstart + int(np.searchsorted(
+                    times[gstart:], t0, side="right"))
+                gidx = cand[gstart:gend]
+                gstart = gend
+                state.sim_time = t0
+                if self.population is not None:
+                    _, arrived = self.population.step(self._churn_rng, fs,
+                                                      t0 - last_t)
+                    if len(arrived):
+                        arrivals.append(arrived)
+                    # departures lose their update, even if they re-arrive
+                    # before their claimed event's group is processed
+                    gidx = gidx[fs.alive[gidx] & ~fs.lost[gidx]]
+                last_t = t0
+                if len(gidx) == 0:
+                    continue
+                kept = (gidx[~self._drop_next[gidx]]
+                        if self.fx is not None else gidx)
+                self._absorb(kept, dataset, K, log_every)
+                processed += len(kept)
+                if processed >= total:
+                    break
+                # redispatch everything claimed: a dropped client reboots
+                # at the time its completion would have fired
+                self._dispatch_vec(gidx, t0, dataset)
+            if arrivals and processed < total:
+                # re-arrivals from population.step() only (claimed events
+                # of this window all have t_next = inf, so an idle scan
+                # would dispatch twice); after the window, since dispatch
+                # clears ``lost``
+                arr = np.unique(np.concatenate(arrivals))
+                self._dispatch_vec(arr[fs.alive[arr]], state.sim_time,
+                                   dataset)
+        self.trace.sim_time = state.sim_time
+        self.trace.per_client_updates = fs.updates.copy()
+        if (self.grad_mode != "none" and dataset is not None
+                and not self.history["f1"]):
             self.history["f1"].append(self.evaluate(dataset))
             self.history["f1_flush"].append(self.state.round)
         return self.history

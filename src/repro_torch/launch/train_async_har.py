@@ -2,16 +2,17 @@
 
 Divergence-guided allocation under buffered, staleness-discounted cohort
 aggregation, on the paper's coupled fleet (3 full / 3 mid / 2 low devices for
-PAMAP2) at a chosen compute gap, with the full-width Backbone 1 by default.
+PAMAP2) at a chosen compute gap, with the full-width Backbone 1 by default
+(``--backbone b2``: the frozen patch-transformer encoders with LoRA and the
+block-LoRA fusion layer, whose local steps run the fused projection kernel).
 Every server flush runs the fused cohort-agg CUDA kernel (``--codec none``)
-or the int8 quantized-ingest kernel (``--codec int8``).
+or the int8 quantized-ingest kernel (``--codec int8``). First a synchronous
+FedAvg run (``FedRun``) does the same total client work on the same device
+model, and the last line gives the simulated wall-clock speedup over it.
 
     python -m repro_torch.launch.train_async_har [--rounds 50] [--buffer 4]
         [--staleness-exp 0.5] [--hetero 100] [--codec none|int8]
-        [--device cuda]
-
-The synchronous FedAvg comparison of ``examples/train_async_har.py`` needs
-the sync engine (``FedRun``), which is not ported yet.
+        [--backbone b1|b2] [--small] [--device cuda]
 """
 from __future__ import annotations
 
@@ -23,24 +24,29 @@ import torch
 
 from repro_torch.core import strategies
 from repro_torch.core.async_engine import AsyncFedConfig, AsyncFedRun
+from repro_torch.core.engine import FedConfig, FedRun
 from repro_torch.core.tasks import MMTask
 from repro_torch.data import HARDataset, get_provider
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.sim import make_fleet
 
 WINDOWS_PER_SUBJECT = 200
+BACKBONES = {"b1": "cnn", "b2": "transformer"}
 
 
 def build(dataset: str = "pamap2", buffer: int = 4,
           staleness_exp: float = 0.5, hetero: float = 100.0,
           jitter: float = 0.0, codec: str = "none", rounds: int = 50,
           small: bool = False, seed: int = 0,
-          device: torch.device | str | None = None
+          device: torch.device | str | None = None, backbone: str = "b1",
+          strategy: str = "async_relief", faults=None
           ) -> tuple[AsyncFedRun, HARDataset]:
     """The run the command line describes, ready for ``run.run(dataset)``:
     the settings of the reference's scenario ``train_async_har`` (paper
     fleet, ``windows_per_subject=200``, ``t_overhead=1e-3``, utilization
-    2e-5, E=5 x 4 steps of batch 32 at lr 1e-3)."""
+    2e-5, E=5 x 4 steps of batch 32 at lr 1e-3). ``strategy`` names an
+    async strategy (``relief_krum`` etc.); ``faults`` is a
+    ``sim.FaultModel``."""
     dev = resolve_device(device)
     provider = get_provider(dataset)
     M = len(provider.modalities())
@@ -49,17 +55,17 @@ def build(dataset: str = "pamap2", buffer: int = 4,
                        low_modalities=(0,), hetero_scale=hetero)
     ds = provider.build(seed=seed, n_clients=fleet.N,
                         windows_per_subject=WINDOWS_PER_SUBJECT)
-    strategy = strategies.get("async_relief", buffer_size=buffer,
-                              staleness_exponent=staleness_exp)
+    strat = strategies.get(strategy, buffer_size=buffer,
+                           staleness_exponent=staleness_exp)
     fed = AsyncFedConfig(rounds=rounds, local_epochs=5, steps_per_epoch=4,
                          batch_size=32, lr=1e-3,
                          eval_every=max(rounds // 2, 1), t_overhead=1e-3,
                          utilization=2e-5, seed=seed, jitter_sigma=jitter,
-                         uplink_codec=codec)
-    cfg = provider.mm_config("cnn", small=small)
+                         uplink_codec=codec, faults=faults)
+    cfg = provider.mm_config(BACKBONES[backbone], small=small)
     task, tr0 = MMTask.create(cfg, torch.Generator().manual_seed(seed),
                               device=dev)
-    return AsyncFedRun.create(task, tr0, strategy, fleet, fed), ds
+    return AsyncFedRun.create(task, tr0, strat, fleet, fed), ds
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -81,8 +87,12 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--codec", default="none", choices=("none", "int8"),
                     help="uplink codec: int8 quantizes client deltas "
                          "(error feedback on-device, fused server ingest)")
+    ap.add_argument("--backbone", default="b1", choices=tuple(BACKBONES),
+                    help="b1: the CNN trained in full; b2: frozen "
+                         "transformer encoders with LoRA")
     ap.add_argument("--small", action="store_true",
-                    help="the reduced Backbone 1 (d_feat 16, d_fused 64)")
+                    help="the reduced configuration (d_feat 16, d_fused 64; "
+                         "B2: 2 encoder layers of width 32)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
     ap.add_argument("--seed", type=int, default=0)
@@ -90,21 +100,41 @@ def main(argv: list[str] | None = None) -> dict:
 
     run, ds = build(args.dataset, args.buffer, args.staleness_exp,
                     args.hetero, args.jitter, args.codec, args.rounds,
-                    args.small, args.seed, args.device)
+                    args.small, args.seed, args.device, args.backbone)
     N = run.fleet.N
-    print(f"[train_async_har] {args.dataset}: fleet N={N} "
+    print(f"[train_async_har] {args.dataset}/{args.backbone}: fleet N={N} "
           f"({args.hetero:.0f}x compute gap), G={run.task.layout.G} groups, "
           f"K={args.buffer}, a={args.staleness_exp}, codec={args.codec}, "
           f"device={args.device}")
+
+    # synchronous FedAvg on the same fleet and device model, same total work
+    f = run.fed
+    sfed = FedConfig(rounds=args.rounds, local_epochs=f.local_epochs,
+                     steps_per_epoch=f.steps_per_epoch,
+                     batch_size=f.batch_size, lr=f.lr,
+                     eval_every=max(args.rounds // 5, 1),
+                     t_overhead=f.t_overhead, utilization=f.utilization,
+                     seed=args.seed)
+    sync = FedRun.create(run.task, run.state.trainable,
+                         strategies.get("fedavg"), run.fleet, sfed)
+    hs = sync.run(ds)
+    sync_total = float(np.sum(hs["round_time_s"]))
+    print(f"[sync fedavg ] {args.rounds} rounds in simulated "
+          f"{sync_total:9.2f}s  F1 {hs['f1'][-1]:.3f}  "
+          f"E {np.sum(hs['energy_j']):.0f}J")
+
     t0 = time.perf_counter()
     hist = run.run(ds, log_every=max(args.rounds * N // args.buffer // 10, 1))
     ups = run.trace.per_client_updates
+    async_total = float(run.state.sim_time)
     print(f"[async relief] {run.state.round} flushes "
           f"({run.trace.completions} updates) in simulated "
-          f"{run.state.sim_time:9.2f}s  F1 {hist['f1'][-1]:.3f}  "
+          f"{async_total:9.2f}s  F1 {hist['f1'][-1]:.3f}  "
           f"E {run.trace.energy_j:.0f}J  host {time.perf_counter() - t0:.1f}s")
-    print(f"[train_async_har] mean staleness {np.mean(hist['staleness_mean']):.2f}, "
-          f"fast/slow update ratio {ups.max()}/{max(ups.min(), 1)}")
+    print(f"[train_async_har] wall-clock speedup vs sync FedAvg: "
+          f"{sync_total / max(async_total, 1e-12):.1f}x  (mean staleness "
+          f"{np.mean(hist['staleness_mean']):.2f}, fast/slow update ratio "
+          f"{ups.max()}/{max(ups.min(), 1)})")
     return hist
 
 

@@ -127,16 +127,19 @@ def test_two_flushes_paper_fleet_match_reference(setup, strategy, codec):
 
 
 def test_unported_options_raise(setup):
+    """Only selective upload and modality schedules are left unported; both
+    runtimes refuse them (robust reducers, faults, rank caps and Backbone 2
+    are taken: tests/test_torch_async_b2.py)."""
     _, _, _, tds, ttask, ttr0 = setup
     fleet = t_fleet(2, 0, 0, M=4)
-    for strat, fed in (
-            (TS.relief_trimmed(), TA.AsyncFedConfig(rounds=1)),
-            (TS.relief_selective(), TA.AsyncFedConfig(rounds=1)),
-            (TS.async_relief(), TA.AsyncFedConfig(rounds=1, faults=object())),
-            (TS.async_relief(),
-             TA.AsyncFedConfig(rounds=1, modality_schedule=object()))):
-        with pytest.raises(NotImplementedError):
-            TA.AsyncFedRun.create(ttask, ttr0, strat, fleet, fed)
+    for run_cls in (TA.AsyncFedRun, TA.VectorizedAsyncFedRun):
+        for strat, fed in (
+                (TS.relief_selective(), TA.AsyncFedConfig(rounds=1)),
+                (TS.fedmfs_selective(), TA.AsyncFedConfig(rounds=1)),
+                (TS.async_relief(),
+                 TA.AsyncFedConfig(rounds=1, modality_schedule=object()))):
+            with pytest.raises(NotImplementedError):
+                run_cls.create(ttask, ttr0, strat, fleet, fed)
     with pytest.raises(ValueError, match="uplink_codec"):
         TA.AsyncFedRun.create(ttask, ttr0, TS.async_relief(), fleet,
                               TA.AsyncFedConfig(rounds=1, uplink_codec="int4"))

@@ -22,7 +22,7 @@ from repro_torch.core.tasks import MMTask as TTask  # noqa: E402
 from repro_torch.data import mm_config_for as t_cfg  # noqa: E402
 from repro_torch.kernels.cohort_agg import ops as tops  # noqa: E402
 from repro_torch.kernels.cohort_agg import ref as tref  # noqa: E402
-from repro_torch.tree import leaves_with_path  # noqa: E402
+from repro_torch.tree import leaves_with_path, tree_map  # noqa: E402
 
 ATOL = 1e-4
 
@@ -194,6 +194,20 @@ def test_buffer_push_and_push_quantized_match_reference(task_pair):
 
 
 def test_buffer_refuses_robust_reducers(task_pair):
+    """An unknown reducer is refused, and a robust buffer refuses a second
+    push before its finalize (order statistics do not stream); the four
+    known reducers are taken (tests/test_torch_robust.py holds them against
+    the reference)."""
     _, _, ttask, ttr0 = task_pair
-    with pytest.raises(NotImplementedError):
-        TAG.CohortAggBuffer(ttask.layout, ttr0, robust="median")
+    with pytest.raises(ValueError, match="robust"):
+        TAG.CohortAggBuffer(ttask.layout, ttr0, robust="huber")
+    stack = tree_map(lambda x: torch.ones((3,) + x.shape), ttr0)
+    W = C = torch.ones((3, ttask.layout.G))
+    for kind in TAG.ROBUST_AGGREGATORS:
+        buf = TAG.CohortAggBuffer(ttask.layout, ttr0, robust=kind)
+        buf.push(stack, W, C)
+        if kind == "mean":
+            buf.push(stack, W, C)
+        else:
+            with pytest.raises(RuntimeError, match="one push"):
+                buf.push(stack, W, C)

@@ -868,3 +868,148 @@ def test_quant_kernel_is_deterministic_and_leaves_counters_zeroed(dev):
                 assert torch.equal(u, v)
     torch.cuda.synchronize()
     assert int(ops._COUNTERS[big[3].device].abs().sum()) == 0
+
+
+# -- the async runtimes on Backbone 2 ---------------------------------------
+
+B2_FUSION = [(1, 112, 8), (4, 112, 8), (64, 112, 8)]  # PAMAP2_B2's a [112, 8]
+
+
+@pytest.mark.parametrize("N,D,r", B2_FUSION)
+def test_kernels_at_the_b2_fusion_shape(dev, N, D, r):
+    """Both uplinks at B2's fusion shape (float4 / char4 spans at r = 8):
+    the one-pass and split-order plain versions, one launch per call."""
+    x, W, C, q, s, st = _inputs(N, D, r, 11 * N, dev)
+    plan = ops.plan_agg(
+        N, D, r, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.vec == 4
+    got = ops.cohort_agg_divergence(x, W, C)
+    for want in (ref.cohort_agg_divergence_ref(x, W, C),
+                 ref.cohort_agg_divergence_split_ref(x, W, C, plan.splits,
+                                                     plan.lanes)):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    got = ops.cohort_agg_divergence_quant(q, s, W, C, st, 0.5)
+    for want in (ref.cohort_agg_divergence_quant_ref(q, s, W, C, st, 0.5),
+                 ref.cohort_agg_divergence_quant_split_ref(
+                     q, s, W, C, st, 0.5, plan.splits, plan.lanes)):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    assert _launches(lambda: ops.cohort_agg_divergence(x, W, C))[0] == 1
+    assert _launches(lambda: ops.cohort_agg_divergence_quant(
+        q, s, W, C, st, 0.5))[0] == 1
+
+
+def _b2_task(dev, full=True):
+    from repro_torch.configs.relief_har import PAMAP2_B2, PAMAP2_B2_SMALL
+    from repro_torch.core.tasks import MMTask
+
+    return MMTask.create(PAMAP2_B2 if full else PAMAP2_B2_SMALL,
+                         torch.Generator().manual_seed(0), device=dev)
+
+
+@pytest.mark.parametrize("kind", ["trimmed", "median", "krum"])
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_robust_buffer_flush_on_card_matches_cpu(dev, kind, codec):
+    """A robust flush of 5 B2 FULL clients (one x1000 attacker) on the card
+    against the same flush on the CPU: the statistics through the fp32
+    kernel (int8 dequantizes first), one launch, the robust aggregate."""
+    from repro_torch import dist
+    from repro_torch.core import aggregation as AG
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    task, tr0 = _b2_task("cpu")
+    layout = task.layout
+    g = torch.Generator().manual_seed(5)
+    d = tree_map(lambda x: 0.01 * torch.randn((5,) + x.shape, generator=g),
+                 tr0)
+    d = tree_map(lambda x: torch.cat([x[:1] * 1000.0, x[1:]]), d)
+    trained = (torch.rand((5, layout.G), generator=g) > 0.25).float()
+    mm = torch.ones((5, layout.n_modalities))
+    mm[1, 3] = 0.0
+    C = torch.as_tensor(layout.accessible(mm.numpy()), dtype=torch.float32
+                        ) * trained
+    stale = torch.tensor([0.0, 1.0, 2.0, 0.0, 3.0])
+    q, sc, _ = dist.quantize_int8_stacked(d)  # one set of codes for both
+    out = {}
+    for where in ("cuda", "cpu"):
+        mv = lambda t: tree_map(lambda x: x.to(where), t)  # noqa: E731
+        buf = AG.CohortAggBuffer(layout, mv(tr0), robust=kind, trim_frac=0.25)
+        W = AG.cohort_weights(layout, trained.to(where), mm.to(where),
+                              client_scale=AG.staleness_discounts(
+                                  stale.to(where), 0.5),
+                              defer_scale=codec == "int8")
+        before = dict(ops.LAUNCHES)
+        if codec == "int8":
+            buf.push_quantized(mv(q), mv(sc), W, C.to(where),
+                               stale.to(where), 0.5)
+        else:
+            buf.push(mv(d), W, C.to(where))
+        agg, div, cnt = buf.finalize()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["cohort_agg_divergence"] == \
+                before["cohort_agg_divergence"] + 1
+            assert ops.LAUNCHES["cohort_agg_divergence_quant"] == \
+                before["cohort_agg_divergence_quant"]
+        out[where] = ({p: v.cpu() for p, v in leaves_with_path(agg)},
+                      div.cpu(), cnt.cpu())
+    (ac, dc, cc), (ap, dp, cp) = out["cuda"], out["cpu"]
+    for p in ap:
+        torch.testing.assert_close(ac[p], ap[p], atol=ATOL, rtol=RTOL, msg=p)
+    torch.testing.assert_close(dc, dp, atol=ATOL, rtol=RTOL)
+    assert torch.equal(cc, cp)
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_vectorized_cohort_flush_on_card_matches_cpu(dev, codec):
+    """One grad_mode="cohort" flush of 8 clients from a scaled fleet of 64
+    (counter-based batch draws, ring snapshots) on PAMAP2_B2_SMALL: the
+    card's trainable and loss against the CPU's, and one aggregation
+    launch of the codec's kernel on the card. The trainable to atol 1e-4;
+    with int8, plus one int8 step of each leaf (its largest dequant scale):
+    the card's deltas differ from the CPU's in their last bits, so a code
+    whose x/scale lies that close to k + 1/2 rounds the other way."""
+    from repro_torch.core import strategies
+    from repro_torch.core.async_engine import (AsyncFedConfig,
+                                               VectorizedAsyncFedRun)
+    from repro_torch.data import make_har_dataset
+    from repro_torch.sim import make_fleet, scale_fleet
+    from repro_torch.tree import leaves_with_path
+
+    ds = make_har_dataset("pamap2", windows_per_subject=60, seed=0)
+    out = {}
+    for where in ("cuda", "cpu"):
+        task, tr0 = _b2_task(where, full=False)
+        run = VectorizedAsyncFedRun.create(
+            task, tr0, strategies.async_relief(buffer_size=8),
+            scale_fleet(make_fleet(3, 3, 2, M=4), 64,
+                        np.random.default_rng(1)),
+            AsyncFedConfig(rounds=1, local_epochs=1, steps_per_epoch=2,
+                           batch_size=8, eval_every=0, seed=0,
+                           grad_mode="cohort", snapshot_ring=4,
+                           uplink_codec=codec))
+        steps, flush = {}, run._flush_arrays
+
+        def record(deltas, *args, **kw):
+            if codec == "int8":
+                steps.update({p: v.max().item() for p, v in
+                              leaves_with_path(deltas.scales)})
+            return flush(deltas, *args, **kw)
+
+        run._flush_arrays = record
+        ops.reset_launches()
+        hist = run.run(ds, total_updates=8)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            name = ("cohort_agg_divergence_quant" if codec == "int8"
+                    else "cohort_agg_divergence")
+            assert ops.LAUNCHES[name] == run.state.round == 1
+        out[where] = (hist["loss"], {p: v.cpu() for p, v in
+                                     leaves_with_path(run.state.trainable)},
+                      steps)
+    (lc, tc, sc), (lp, tp, _) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(lc, lp, rtol=1e-4)
+    for p in tp:
+        torch.testing.assert_close(tc[p], tp[p], atol=1e-4 + sc.get(p, 0.0),
+                                   rtol=0, msg=p)
