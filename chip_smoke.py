@@ -87,8 +87,10 @@ Phases, each printing its lines (and its wall time) before the last:
               ``train_relief_har.build``: three rounds of relief and three of
               fedavg, launch counts zeroed just before each and read just
               after (rounds x E x steps + the evaluation's batches); then
-              one more relief round under the profiler (device busy time,
-              idle share, launches, top kernels)
+              a relief round under the profiler in a child process
+              (``--profile-sync``; device busy time, idle share, launches,
+              top kernels): in this one the profiler's hooks slowed every
+              later host-bound phase
  16. sync check  one PAMAP2_B2_SMALL relief round on the card against the
               same round on the CPU, and PAMAP2_B2 FULL logits card vs CPU
  17. async b2  the asynchronous runtime (AsyncFedRun) on full-width PAMAP2
@@ -113,6 +115,27 @@ Phases, each printing its lines (and its wall time) before the last:
  20. async check  PAMAP2_B2_SMALL, 2 flushes, on the card against the CPU
               from the same seed and weights: relief fp32, relief int8 and
               relief_krum under phase 18's faults
+ 21. scenarios  the scenario matrix (``sim.make_run``) on full-width PAMAP2
+              Backbone 2, paper fleet (3,3,2), K=4, 8 absorbed updates per
+              run on the heap runtime: static30 x async_relief (fp32),
+              static30 x relief_selective (int8, comm budget 0.5), and the
+              twins stream30 x async_accessible and x fedmfs_selective
+              (the same dispatches: equal completions, the selective one
+              under 0.75 of the twin's upload bytes); then stream30 x
+              async_relief on the vectorized runtime (grad mode
+              "dispatch") against its heap twin, flush histories equal.
+              Aggregation launches equal each codec's flushes, the fused
+              projection's dispatch calls x 20 steps + the evaluation's
+              batches; host wall, ms per dispatch call and per flush
+ 22. experiments  the experiment runner's Table II (``experiments.
+              main_table``) on PAMAP2 B2 FULL, fedavg and relief, 3 rounds
+              each: the table row (F1, rare F1, speedup, TTA, MB/r, J/r,
+              Esave%) and the fused projection's launches (rounds x 20 +
+              the evaluations' and the per-modality evaluation's batches)
+ 23. scenario check  PAMAP2_B2_SMALL, stream30 x fedmfs_selective, fp32,
+              2 flushes, on the card against the CPU from the same seed:
+              every dispatch's upload rows S_up and the flush histories
+              equal, losses to rtol 1e-4, the trainable to atol 1e-4
 Each path's launch counts are zeroed just before it and read just after.
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero,
@@ -1404,7 +1427,26 @@ def _time_rounds(torch, run) -> list:
     return walls
 
 
-def sync_path(torch, md_ops, train_relief_har, profile_serve) -> int:
+PROFILE_SYNC = "--profile-sync"  # the child mode of sync_path's profile
+
+
+def profile_sync_child() -> None:
+    """The child mode: a warm-up relief round of ``train_relief_har``'s run
+    on PAMAP2 B2 FULL, then one more under the profiler (its lines on
+    stdout)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.launch import profile_serve, train_relief_har
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run, ds = train_relief_har.build(strategy="relief", device="cuda")
+    run.round(ds)
+    profile_serve.profile_steps("sync relief round (20 local steps)",
+                                lambda: run.round(ds), 1,
+                                torch.device("cuda"))
+
+
+def sync_path(torch, md_ops, train_relief_har) -> int:
     # cold start (cuBLAS handles, first vmap traces) outside the window
     run, ds = train_relief_har.build(device="cuda")
     t0 = time.perf_counter()
@@ -1449,10 +1491,15 @@ def sync_path(torch, md_ops, train_relief_har, profile_serve) -> int:
                 f"{v:.3f}" for v in hist["selected_frac"])
             + f"; losses {[round(v, 4) for v in hist['loss']]}, macro-F1 "
             f"{hist['f1'][-1]:.4f} after {SYNC_ROUNDS} rounds")
-        if strategy == "relief":  # outside the counted window
-            profile_serve.profile_steps("sync relief round (20 local steps)",
-                                        lambda: run.round(ds), 1,
-                                        torch.device("cuda"))
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          PROFILE_SYNC], capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        fail(f"the profiled sync round failed ({res.returncode}):\n"
+             f"{res.stderr[-4000:]}")
+    for line in res.stdout.splitlines():
+        if line.startswith("[profile]"):
+            say(line)
     return total
 
 
@@ -1760,6 +1807,181 @@ def async_check(torch, train_async_har, FaultModel) -> None:
                  f"with the CPU: {bad}")
 
 
+# -- phases 21-23 -----------------------------------------------------------
+
+SCENARIO_UPDATES = 8  # absorbed client updates per scenario run (2 flushes)
+TABLE_ROUNDS = 3
+
+
+def _scenario_run(sim, name, strategy, codec="none", vectorized=False,
+                  **kw):
+    """``sim.make_run`` for a library scenario at PAMAP2 B2 FULL width (the
+    spec's default training: E=5 x 4 steps of batch 32, K=4)."""
+    spec = sim.get_scenario(name, strategy=strategy, backbone="transformer",
+                            small_model=False, uplink_codec=codec,
+                            total_updates=SCENARIO_UPDATES, **kw)
+    return sim.make_run(spec, vectorized, device="cuda")
+
+
+def scenarios_path(torch, ops, md_ops, sim) -> dict:
+    """Phase 21: missing-modality scenarios, live masks and selective
+    upload on B2 FULL through kernels 1-3."""
+    launches = {"agg": 0, "quant": 0, "mdlora": 0}
+    runs = {}
+    for tag, name, strategy, codec, vec, kw in (
+            ("static30 async_relief", "static30", "async_relief", "none",
+             False, {}),
+            ("static30 relief_selective", "static30", "relief_selective",
+             "int8", False, dict(strategy_args=(("comm_budget", 0.5),))),
+            ("stream30 async_accessible", "stream30", "async_accessible",
+             "none", False, {}),
+            ("stream30 fedmfs_selective", "stream30", "fedmfs_selective",
+             "none", False, dict(strategy_args=(("comm_budget", 0.5),))),
+            ("stream30 async_relief heap", "stream30", "async_relief",
+             "none", False, {}),
+            ("stream30 async_relief vectorized", "stream30", "async_relief",
+             "none", True, dict(grad_mode="dispatch"))):
+        run, sc = _scenario_run(sim, name, strategy, codec, vec, **kw)
+        names = (("_dispatch_vec", "_flush_vec") if vec
+                 else ("_dispatch", "_flush"))
+        ops.reset_launches()
+        md_ops.reset_launches()
+        hist, wall, spent = _run_async(torch, run, sc.dataset,
+                                       SCENARIO_UPDATES, names)
+        n = {**ops.LAUNCHES, **md_ops.LAUNCHES}
+        _say_async(f"scenarios {tag}", run, hist, wall, spent)
+        steps = run.fed.local_epochs * run.fed.steps_per_epoch
+        want = spent["_dispatch"][1] * steps + _eval_batches(sc.dataset)
+        flushes = run.state.round
+        key, other = (("cohort_agg_divergence_quant", "cohort_agg_divergence")
+                      if codec == "int8" else
+                      ("cohort_agg_divergence", "cohort_agg_divergence_quant"))
+        say(f"[scenarios] {tag} codec={codec}: {run.trace.completions} "
+            f"updates, upload {run.trace.upload_mb:.6f} MB, selected "
+            f"{[round(v, 4) for v in hist['selected_frac']]}, launches {n} "
+            f"(expected {key} {flushes} = the flushes; mdlora_matmul {want} "
+            f"= {spent['_dispatch'][1]} dispatch calls x {steps} steps + "
+            f"{_eval_batches(sc.dataset)} evaluation batches)")
+        if (flushes != 2 or n[key] != flushes or n[other]
+                or n["mdlora_matmul"] != want or n["mdlora_matmul_multi"]):
+            fail(f"scenarios {tag} did not launch the kernels its path "
+                 "requires")
+        launches["quant" if codec == "int8" else "agg"] += n[key]
+        launches["mdlora"] += n["mdlora_matmul"]
+        runs[tag] = (run, hist)
+    (twin, _), (sel, _) = (runs["stream30 async_accessible"],
+                           runs["stream30 fedmfs_selective"])
+    ratio = sel.trace.upload_mb / twin.trace.upload_mb
+    say(f"[scenarios] stream30 fedmfs_selective vs its twin "
+        f"async_accessible: completions {sel.trace.completions} vs "
+        f"{twin.trace.completions}, upload {ratio:.4f} of the twin's bytes "
+        f"(limit 0.75), simulated {sel.state.sim_time:.4f} vs "
+        f"{twin.state.sim_time:.4f}s")
+    if sel.trace.completions != twin.trace.completions or ratio >= 0.75:
+        fail("selective upload did not cut the twin's upload bytes")
+    (_, h0), (_, h1) = (runs["stream30 async_relief heap"],
+                        runs["stream30 async_relief vectorized"])
+    same = all(h0[k] == h1[k] for k in ("flush", "staleness_mean",
+                                        "selected_frac", "sim_time_s"))
+    # the vectorized trace adds a timestamp group's uploads in one sum
+    up = max(abs(a - b) / abs(a) for a, b in zip(h0["upload_mb"],
+                                                 h1["upload_mb"]))
+    rel = max(abs(a - b) / abs(a) for a, b in zip(h0["loss"], h1["loss"]))
+    say(f"[scenarios] stream30 heap vs vectorized (dispatch): flush, "
+        f"staleness_mean, selected_frac, sim_time_s equal: {same}; upload_mb"
+        f" max rel err {up:.1e} (rtol 1e-9); loss max rel err {rel:.2e} "
+        f"(rtol 1e-4)")
+    if not same or up > 1e-9 or rel > 1e-4:
+        fail("the vectorized runtime's stream30 history differs from the "
+             "heap's")
+    return launches
+
+
+def experiments_path(torch, md_ops, experiments, get_provider) -> int:
+    """Phase 22: Table II on PAMAP2 B2 FULL, fedavg and relief."""
+    md_ops.reset_launches()
+    t0 = time.perf_counter()
+    rows = experiments.main_table("b2", TABLE_ROUNDS,
+                                  methods=["fedavg", "relief"],
+                                  datasets=("pamap2",), small=False,
+                                  device="cuda", cache_dir=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = dict(md_ops.LAUNCHES)
+    spec = experiments.BenchSpec("relief", "pamap2", "b2", TABLE_ROUNDS,
+                                 small=False)
+    ds = get_provider("pamap2").build(seed=spec.seed, n_clients=8,
+                                      windows_per_subject=spec.windows)
+    batches = _eval_batches(ds)
+    every = max(TABLE_ROUNDS // 10, 1)  # FedRun.run's evaluation rounds
+    evals = sum((r + 1) % every == 0 or r == TABLE_ROUNDS - 1
+                for r in range(TABLE_ROUNDS))
+    per_run = TABLE_ROUNDS * 20 + (evals + 4) * batches
+    for r in rows:
+        say(f"[experiments] {r['method']} on {r['dataset']} B2 FULL, "
+            f"{TABLE_ROUNDS} rounds (synthetic data): F1 {r['f1']:.4f}, rare "
+            f"F1 {r['rare_mod_f1']:.4f}, speedup {r['speedup']:.3f}x, TTA "
+            f"{r['tta_rounds']}, {r['comm_mb']:.4f} MB/r, "
+            f"{r['energy_j']:.2f} J/r, Esave {r['energy_save_pct']:.2f}%; "
+            f"host {r['host_wall_s']:.2f}s on {r['device']}")
+    say(f"[experiments] host wall {wall:.2f}s; launches {n} (expected "
+        f"mdlora_matmul {2 * per_run} = 2 runs x ({TABLE_ROUNDS} rounds x "
+        f"20 steps + ({evals} evaluations + 4 per-modality) x {batches} "
+        "batches))")
+    if n["mdlora_matmul"] != 2 * per_run or n["mdlora_matmul_multi"]:
+        fail("the experiment runner did not launch the fused kernel as its "
+             "path requires")
+    if not all(0.0 <= r["f1"] <= 1.0 and 0.0 <= r["rare_mod_f1"] <= 1.0
+               for r in rows) or rows[0]["speedup"] != 1.0:
+        fail(f"experiments: bad table rows {rows}")
+    return n["mdlora_matmul"]
+
+
+def scenario_check(torch, sim, async_engine) -> None:
+    """Phase 23: stream30 x fedmfs_selective on PAMAP2_B2_SMALL, fp32, 2
+    flushes, card against CPU: S_up rows and histories equal, losses to
+    rtol 1e-4, trainable to atol 1e-4."""
+    from repro_torch.tree import leaves_with_path
+
+    out = {}
+    orig = async_engine._selective_upload
+    for dev in ("cuda", "cpu"):
+        ups = []
+
+        def record(*a, _ups=ups, **k):
+            _ups.append(orig(*a, **k))
+            return _ups[-1]
+
+        async_engine._selective_upload = record
+        try:
+            spec = sim.get_scenario(
+                "stream30", strategy="fedmfs_selective",
+                backbone="transformer", small_model=True,
+                total_updates=SCENARIO_UPDATES)
+            run, sc = sim.make_run(spec, device=dev)
+            hist = run.run(sc.dataset)
+        finally:
+            async_engine._selective_upload = orig
+        out[dev] = (hist, ups, {k: v.cpu() for k, v in
+                                leaves_with_path(run.state.trainable)})
+    (hc, uc, tc), (hp, up, tp) = out["cuda"], out["cpu"]
+    same_up = len(uc) == len(up) > 0 and all(
+        (a == b).all() for a, b in zip(uc, up))
+    same = all(hc[k] == hp[k] for k in ("flush", "staleness_mean",
+                                        "selected_frac", "sim_time_s",
+                                        "upload_mb"))
+    err = max((tc[k] - tp[k]).abs().max().item() for k in tp)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hc["loss"], hp["loss"]))
+    say(f"[check] PAMAP2_B2_SMALL stream30 fedmfs_selective card vs CPU "
+        f"after {len(hc['flush'])} flushes: S_up rows of {len(uc)} "
+        f"dispatches equal: {same_up}; histories equal: {same}; trainable "
+        f"max abs err {err:.2e} (atol 1e-4), loss rel err {rel:.2e} (rtol "
+        "1e-4)")
+    if len(hc["flush"]) != 2 or not same_up or not same or err > 1e-4 \
+            or rel > 1e-4:
+        fail("stream30 fedmfs_selective on the card disagrees with the CPU")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1779,9 +2001,8 @@ def main() -> None:
     from repro_torch.kernels.mdlora.autograd import fused_block_lora
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
-    from repro_torch.launch import (profile_serve, serve, serving_engine,
-                                    step_fns, train_async_har,
-                                    train_relief_har)
+    from repro_torch.launch import (serve, serving_engine, step_fns,
+                                    train_async_har, train_relief_har)
     from repro_torch.models import api, ssm
     from repro_torch.tree import tree_map
 
@@ -1859,7 +2080,7 @@ def main() -> None:
                                      md_ops, md_ref, fused_block_lora,
                                      counts)["path"]
     launches["mdlora_matmul"] = phase("sync", sync_path, torch, md_ops,
-                                      train_relief_har, profile_serve)
+                                      train_relief_har)
     phase("sync check", sync_check, torch, md_ops, train_relief_har,
           tree_map)
     from repro_torch import sim
@@ -1876,6 +2097,16 @@ def main() -> None:
         launches["mdlora_matmul"] += got["mdlora"]
         say(f"[{name}] kernel 1-3 launches on this path: {got}")
     phase("async check", async_check, torch, train_async_har, sim.FaultModel)
+    from repro_torch.data import get_provider
+    from repro_torch.launch import experiments
+    got = phase("scenarios", scenarios_path, torch, ops, md_ops, sim)
+    launches["cohort_agg_divergence"] += got["agg"]
+    launches["cohort_agg_divergence_quant"] += got["quant"]
+    launches["mdlora_matmul"] += got["mdlora"]
+    say(f"[scenarios] kernel 1-3 launches on this path: {got}")
+    launches["mdlora_matmul"] += phase("experiments", experiments_path, torch,
+                                       md_ops, experiments, get_provider)
+    phase("scenario check", scenario_check, torch, sim, async_engine)
     lines = []
     for name, replaces in KERNELS.items():
         lines.append(dict(
@@ -1893,5 +2124,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == [LAUNCH_COUNTS]:
         launch_counts_child()
+    elif sys.argv[1:] == [PROFILE_SYNC]:
+        profile_sync_child()
     else:
         main()

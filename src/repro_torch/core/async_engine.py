@@ -36,10 +36,14 @@ Two runtimes share one server flush (``_ServerFlushMixin._flush_arrays``):
 
 Both take fault injection (``faults``: dropout, stalls, Byzantine
 corruption before the int8 quantization), the robust cohort reducers of the
-strategy, and HeLoRA rank caps (the heap loop only, as in the reference);
-the vectorized one also churn and re-arrivals. Not ported: time-varying
-modality schedules and FedMFS selective upload, refused by
-``_check_strategy``.
+strategy, HeLoRA rank caps (the heap loop only, as in the reference),
+time-varying modality schedules (``modality_schedule``, a
+``sim.scenarios.StreamingSchedule``: each dispatch allocates and trains on
+the masks live at its time, and the flush's cohorts follow them) and FedMFS
+selective upload (``strategy.selective``: each client uploads the blocks of
+highest norm per byte within ``comm_budget``; the vectorized runtime only in
+grad mode "dispatch", where the deltas exist at dispatch). The vectorized
+one also takes churn and re-arrivals.
 """
 from __future__ import annotations
 
@@ -55,7 +59,8 @@ from repro_torch.core import mdlora
 from repro_torch.core.engine import (AllocPlan, FedConfig, _rank_gates,
                                      allocate, allocate_rows,
                                      draw_client_batches, make_local_update,
-                                     plan_allocation, simulated_flops)
+                                     plan_allocation, scenario_fed_kwargs,
+                                     simulated_flops)
 from repro_torch.core.strategies import AsyncStrategy
 from repro_torch.core.tasks import MMTask
 from repro_torch.sim import FaultModel, FaultRuntime, FleetConfig
@@ -88,7 +93,28 @@ class AsyncFedConfig(FedConfig):
     # fleet fault injection (sim/faults.py): Byzantine delta corruption,
     # mid-round dropout, stalls. None (or byzantine_frac = 0) = fault-free
     faults: FaultModel | None = None
-    modality_schedule: Any = None  # streaming masks: not ported, must be None
+    # time-varying modality availability (sim/scenarios.StreamingSchedule):
+    # when set, each dispatch evaluates the client's live modality mask at
+    # the dispatch time; allocation candidates, local-training masks and the
+    # flush's cohorts follow it. None = the fleet's static possession mask
+    modality_schedule: Any = None
+
+    @classmethod
+    def from_scenario(cls, spec, fleet=None, **overrides):
+        """The async runtime config a ``sim.scenarios.ScenarioSpec``
+        describes (duck-typed). A streaming scenario derives its
+        ``modality_schedule`` from the spec (``fleet`` reuses an already
+        built fleet's possession base)."""
+        kw = scenario_fed_kwargs(spec) | dict(
+            jitter_sigma=spec.jitter_sigma, total_updates=spec.total_updates,
+            uplink_codec=spec.uplink_codec, grad_mode=spec.grad_mode,
+            faults=spec.faults)
+        if (getattr(spec, "missing", None) == "streaming"
+                and "modality_schedule" not in overrides):
+            from repro_torch.sim.scenarios import schedule_for
+
+            kw["modality_schedule"] = schedule_for(spec, fleet)
+        return cls(**(kw | overrides))
 
 
 @dataclasses.dataclass
@@ -110,7 +136,8 @@ def _make_state(G: int, trainable0: Any, seed: int) -> AsyncFedState:
 UPLINK_CODECS = ("none", "int8")
 
 
-def _check_strategy(strategy: AsyncStrategy, fed: AsyncFedConfig) -> None:
+def _check_strategy(strategy: AsyncStrategy, fed: AsyncFedConfig,
+                    fleet: FleetConfig | None = None) -> None:
     if strategy.personal or strategy.share_only:
         raise ValueError("async runtime keeps one global model; "
                          "personalized strategies are sync-only")
@@ -126,11 +153,15 @@ def _check_strategy(strategy: AsyncStrategy, fed: AsyncFedConfig) -> None:
     if strategy.selective and not 0.0 < strategy.comm_budget <= 1.0:
         raise ValueError(f"comm_budget must be in (0, 1], "
                          f"got {strategy.comm_budget}")
-    for what, unported in (("selective upload", strategy.selective),
-                           ("modality schedules",
-                            fed.modality_schedule is not None)):
-        if unported:
-            raise NotImplementedError(f"{what} are not ported yet")
+    sched = fed.modality_schedule
+    if sched is not None:
+        if strategy.alloc == "random":
+            raise ValueError("alloc='random' redraws fleet-shaped noise per "
+                             "dispatch; incompatible with a time-varying "
+                             "modality schedule")
+        if fleet is not None and (sched.N != fleet.N or sched.M != fleet.M):
+            raise ValueError(f"modality_schedule shape ({sched.N}, {sched.M})"
+                             f" does not match fleet ({fleet.N}, {fleet.M})")
 
 
 def _make_fault_runtime(fed: AsyncFedConfig,
@@ -145,6 +176,73 @@ def _make_aggbuf(task: MMTask, trainable0: Any,
     return AG.CohortAggBuffer(task.layout, trainable0, robust=strategy.robust,
                               trim_frac=strategy.trim_frac,
                               krum_f=strategy.krum_f)
+
+
+def _selective_upload(layout: mdlora.GroupLayout, deltas: Any,
+                      S: np.ndarray, budget: float) -> np.ndarray:
+    """FedMFS selective modality communication: which trained blocks to
+    upload. Per client, blocks are ranked by utility per byte,
+    ||delta_g||^2 / size_g (the marginal-contribution proxy of
+    arXiv:2310.07048), and taken greedily while the cumulative size fits
+    ``budget`` x (the client's full trained upload). The top block is always
+    taken (an empty upload would stall the protocol); a later block that
+    overflows is skipped, not a stop, so the knapsack packs tightly.
+
+    Deterministic in (deltas, S): no rng, a stable sort, and norms summed
+    without atomics (``mdlora.group_norms``), so both runtimes select the
+    same sets for the same dispatches, call after call."""
+    norms = mdlora.group_norms(layout, deltas,
+                               batch_dims=1).cpu().numpy()  # [K, G] squared
+    sizes = np.asarray(layout.sizes, np.float64)
+    S = np.asarray(S, bool)
+    S_up = np.zeros_like(S)
+    for k in range(S.shape[0]):
+        cand = np.nonzero(S[k])[0]
+        if len(cand) == 0:
+            continue
+        cap = budget * float(sizes[cand].sum())
+        density = norms[k, cand] / np.maximum(sizes[cand], 1.0)
+        order = cand[np.argsort(-density, kind="stable")]
+        spent = 0.0
+        for j, g in enumerate(order):
+            if j == 0 or spent + sizes[g] <= cap:
+                S_up[k, g] = True
+                spent += sizes[g]
+    return S_up
+
+
+def _gate_rows(layout: mdlora.GroupLayout, deltas: Any,
+               S_up: np.ndarray) -> Any:
+    """Zero the blocks a client does not upload in a client-stacked tree."""
+    dev = leaves(deltas)[0].device
+    return mdlora.group_gate_tree(
+        layout, deltas, torch.as_tensor(S_up, dtype=torch.float32,
+                                        device=dev))
+
+
+def _live_masks(fed: AsyncFedConfig, fleet: FleetConfig, clients: np.ndarray,
+                now: float) -> np.ndarray:
+    """[B, M] modality masks of ``clients`` at dispatch time ``now``: the
+    schedule's live masks, or the fleet's static possession without one."""
+    sched = fed.modality_schedule
+    return (sched.masks_at(now, clients) if sched is not None
+            else fleet.modality_mask[clients])
+
+
+def _allocate_live(plan: AllocPlan, strategy: AsyncStrategy, state: Any,
+                   layout: mdlora.GroupLayout, clients: np.ndarray,
+                   live_mm: np.ndarray, fed: AsyncFedConfig) -> np.ndarray:
+    """S rows for a dispatch. Under a modality schedule the candidates (and
+    the mandatory fusion blocks) follow the masks live at dispatch; the
+    budgets stay the plan's, solved over the base fleet."""
+    if fed.modality_schedule is None:
+        return allocate_rows(plan, strategy, state, clients)
+    unaware = strategy.alloc in ("full", "magnitude", "depth")
+    return allocate_rows(
+        plan, strategy, state, clients,
+        cand=None if unaware else layout.accessible(live_mm),
+        mandatory=(layout.mandatory(live_mm) if strategy.mandatory
+                   else None))
 
 
 def _history_init() -> dict:
@@ -162,11 +260,11 @@ class _Pending:
     version: int  # server version pulled at dispatch
     delta: Any  # trainable-shaped update, or (int8 tree, scale tree)
     loss: float
-    S_row: np.ndarray  # [G] groups trained and uploaded
+    S_row: np.ndarray  # [G] groups uploaded (= trained unless selective)
     t_comp: float
     t_comm: float
     upload_bytes: float
-    mmask_row: np.ndarray  # [M] modality mask at dispatch
+    mmask_row: np.ndarray  # [M] live modality mask at dispatch
     # fault-injected mid-round crash: the completion event still fires (it
     # times the client's reboot and redispatch) but is never absorbed: no
     # buffer entry, no energy or upload accounting, no progress
@@ -200,6 +298,10 @@ class _ServerFlushMixin:
         K = len(client_ids)
         quant = isinstance(deltas, AG.QuantizedStack)
         staleness = np.asarray(staleness, np.float64)
+        # cohorts are per flush: under a streaming schedule each buffered
+        # update carries the modality mask it was dispatched with, and both
+        # the Eq. 3-4 cohort weights and the Eq. 5 divergence cohorts follow
+        # it instead of the fleet's static possession
         if mmask_rows is None:
             mmask_rows = fleet.modality_mask[client_ids]
         fresh = np.ones(K, bool)
@@ -318,7 +420,7 @@ class AsyncFedRun(_ServerFlushMixin):
     @classmethod
     def create(cls, task: MMTask, trainable0: Any, strategy: AsyncStrategy,
                fleet: FleetConfig, fed: AsyncFedConfig) -> AsyncFedRun:
-        _check_strategy(strategy, fed)
+        _check_strategy(strategy, fed, fleet)
         state = _make_state(task.layout.G, trainable0, fed.seed)
         trace = AsyncTrace()
         trace.init_fleet(fleet.N)
@@ -344,13 +446,14 @@ class AsyncFedRun(_ServerFlushMixin):
             return
         dev = leaves(state.trainable)[0].device
 
-        live_mm = fleet.modality_mask[clients]
+        live_mm = _live_masks(fed, fleet, clients, now)
         if self.plan is None:  # alloc="random": full-fleet rng draw
             S_full, _ = allocate(self.strategy, state, task, fleet, fed,
                                  layout.flops)
             S = S_full[clients]  # [K, G]
         else:
-            S = allocate_rows(self.plan, self.strategy, state, clients)
+            S = _allocate_live(self.plan, self.strategy, state, layout,
+                               clients, live_mm, fed)
         fault = self.fx.on_dispatch(clients) if self.fx is not None else None
 
         steps = fed.local_epochs * fed.steps_per_epoch
@@ -368,9 +471,14 @@ class AsyncFedRun(_ServerFlushMixin):
         if fault is not None:  # corrupt pre-quantization, like a real client
             dropped, slow, byz_rows, tickets = fault
             deltas = self.fx.corrupt(deltas, byz_rows, clients, tickets)
+        S_up = S
+        if self.strategy.selective:  # FedMFS: shrink the upload, not compute
+            S_up = _selective_upload(layout, deltas, S,
+                                     self.strategy.comm_budget)
+            deltas = _gate_rows(layout, deltas, S_up)
 
         trained_fl, fixed_fl = simulated_flops(task, fed, S)
-        upload = ((np.asarray(S, np.float64) @ layout.sizes)
+        upload = ((np.asarray(S_up, np.float64) @ layout.sizes)
                   * self._uplink_bytes_per_param)
         dur, t_comp, t_comm = completion_times(
             fleet, clients, trained_fl, fixed_fl, upload, fed.t_overhead,
@@ -388,7 +496,7 @@ class AsyncFedRun(_ServerFlushMixin):
                 self.ef[int(c)] = resid
                 d_i = (q_i, s_i)
             pend = _Pending(int(c), state.round, d_i, float(losses_np[i]),
-                            S[i], float(t_comp[i]), float(t_comm[i]),
+                            S_up[i], float(t_comp[i]), float(t_comm[i]),
                             float(upload[i]), live_mm[i],
                             dropped=fault is not None and bool(dropped[i]))
             self.queue.push(now + dur[i], int(c), payload=pend)
@@ -534,10 +642,14 @@ class VectorizedAsyncFedRun(_ServerFlushMixin):
     def create(cls, task: MMTask, trainable0: Any, strategy: AsyncStrategy,
                fleet: FleetConfig, fed: AsyncFedConfig
                ) -> VectorizedAsyncFedRun:
-        _check_strategy(strategy, fed)
+        _check_strategy(strategy, fed, fleet)
         if fed.grad_mode not in GRAD_MODES:
             raise ValueError(f"grad_mode must be one of {GRAD_MODES}, "
                              f"got {fed.grad_mode!r}")
+        if strategy.selective and fed.grad_mode != "dispatch":
+            raise ValueError("selective upload ranks the actual deltas at "
+                             "dispatch; grad_mode='cohort'/'none' never "
+                             "materializes them")
         if strategy.rank_caps:
             raise ValueError("rank_caps build an [N, ...]-stacked gate tree "
                              "-- unsupported at fleet scale")
@@ -567,19 +679,21 @@ class VectorizedAsyncFedRun(_ServerFlushMixin):
         B = len(idx)
         if B == 0:
             return
-        live_mm = fleet.modality_mask[idx]
-        S = allocate_rows(self.plan, self.strategy, state, idx)  # [B, G]
+        live_mm = _live_masks(fed, fleet, idx, now)
+        S = _allocate_live(self.plan, self.strategy, state, layout, idx,
+                           live_mm, fed)  # [B, G]
         fault = None
         if self.fx is not None:
             fault = self.fx.on_dispatch(idx)
             self._drop_next[idx] = fault[0]
             self._fault_ticket[idx] = fault[3]
 
+        S_up = S  # uploaded set (= trained unless selective shrinks it)
         if self.grad_mode == "dispatch":
-            self._train_at_dispatch(idx, S, live_mm, fault, dataset)
+            S_up = self._train_at_dispatch(idx, S, live_mm, fault, dataset)
 
         trained_fl, fixed_fl = simulated_flops(task, fed, S)
-        upload = ((np.asarray(S, np.float64) @ layout.sizes)
+        upload = ((np.asarray(S_up, np.float64) @ layout.sizes)
                   * self._uplink_bytes_per_param)
         dur, t_comp, t_comm = T.cycle_times(
             fleet, idx, trained_fl, fixed_fl, upload, fed.t_overhead,
@@ -588,15 +702,16 @@ class VectorizedAsyncFedRun(_ServerFlushMixin):
             slow = fault[1]
             dur = dur + t_comp * (slow - 1.0)
             t_comp = t_comp * slow
-        self.fstate.dispatch(idx, now, state.round, pack_group_bits(S),
+        self.fstate.dispatch(idx, now, state.round, pack_group_bits(S_up),
                              dur, t_comp, t_comm, upload)
         self.fstate.mod_bits[idx] = pack_group_bits(live_mm)
 
     def _train_at_dispatch(self, idx: np.ndarray, S: np.ndarray,
-                           live_mm: np.ndarray, fault, dataset) -> None:
+                           live_mm: np.ndarray, fault, dataset) -> np.ndarray:
         """grad_mode "dispatch": local training for the dispatched clients
         now, stored (int8-compressed with the int8 uplink) in the [N, ...]
-        pending rows until their completion is flushed."""
+        pending rows until their completion is flushed -> the uploaded
+        groups ``S_up`` [B, G] (``S`` unless the strategy is selective)."""
         fed, state, dev = self.fed, self.state, self.device
         B = len(idx)
         steps = fed.local_epochs * fed.steps_per_epoch
@@ -609,6 +724,11 @@ class VectorizedAsyncFedRun(_ServerFlushMixin):
             torch.as_tensor(S, **f32), fed.lr)
         if fault is not None:  # corrupt pre-quantization (heap parity)
             deltas = self.fx.corrupt(deltas, fault[2], idx, fault[3])
+        S_up = S
+        if self.strategy.selective:  # FedMFS: shrink the upload, not compute
+            S_up = _selective_upload(self.task.layout, deltas, S,
+                                     self.strategy.comm_budget)
+            deltas = _gate_rows(self.task.layout, deltas, S_up)
         quantize = fed.uplink_codec == "int8"
         N = self.fleet.N
         if self._pend_deltas is None:
@@ -637,6 +757,7 @@ class VectorizedAsyncFedRun(_ServerFlushMixin):
         else:
             self._pend_deltas = tree_map(put, self._pend_deltas, deltas)
         self._pend_loss[idx] = losses.detach().cpu().numpy()
+        return S_up
 
     # -- completion absorption / flush ----------------------------------------
 

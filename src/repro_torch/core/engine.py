@@ -56,6 +56,21 @@ class FedConfig:
     # charging the fixed full-model forward to everyone.
     sim_mode: str = "flop_proportional"
 
+    @classmethod
+    def from_scenario(cls, spec, **overrides):
+        """Training knobs from a ``sim.scenarios.ScenarioSpec`` (duck-typed:
+        anything with the same field names works)."""
+        return cls(**(scenario_fed_kwargs(spec) | overrides))
+
+
+def scenario_fed_kwargs(spec) -> dict:
+    """The FedConfig fields a ScenarioSpec carries, as constructor kwargs."""
+    return dict(rounds=spec.rounds, local_epochs=spec.local_epochs,
+                steps_per_epoch=spec.steps_per_epoch,
+                batch_size=spec.batch_size, lr=spec.lr,
+                eval_every=spec.eval_every, t_overhead=spec.t_overhead,
+                utilization=spec.utilization, seed=spec.seed)
+
 
 # ---------------------------------------------------------------------------
 # local update (shared by every strategy)
@@ -193,11 +208,19 @@ def plan_allocation(strategy: Strategy, task: MMTask, fleet: FleetConfig,
 
 
 def allocate_rows(plan: AllocPlan, strategy: Strategy, state: Any,
-                  idx: np.ndarray) -> np.ndarray:
+                  idx: np.ndarray, cand: np.ndarray | None = None,
+                  mandatory: np.ndarray | None = None) -> np.ndarray:
     """S rows [len(idx), G] for the client subset ``idx``; row-identical to
-    ``allocate(...)[0][idx]`` for every deterministic allocator."""
+    ``allocate(...)[0][idx]`` for every deterministic allocator.
+    ``cand``/``mandatory`` ([len(idx), G]) override the plan's fleet-static
+    masks: under a streaming modality schedule the candidates follow the
+    masks live at dispatch, while the Eq. 7 budgets ``k`` stay solved over
+    the base fleet."""
     idx = np.asarray(idx)
-    cand, mandatory, k = plan.cand[idx], plan.mandatory[idx], plan.k[idx]
+    cand = plan.cand[idx] if cand is None else np.asarray(cand, bool)
+    mandatory = (plan.mandatory[idx] if mandatory is None
+                 else np.asarray(mandatory, bool))
+    k = plan.k[idx]
     if strategy.alloc in ("full", "accessible"):
         return cand
     if strategy.alloc == "divergence":

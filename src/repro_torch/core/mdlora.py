@@ -222,7 +222,13 @@ def group_gate_tree(layout: GroupLayout, tree: Any,
 def group_norms(layout: GroupLayout, tree: Any,
                 batch_dims: int = 0) -> torch.Tensor:
     """Per-group squared Frobenius norms -> [*B, G] float32, where the
-    leaves carry ``batch_dims`` leading axes ``*B``."""
+    leaves carry ``batch_dims`` leading axes ``*B``.
+
+    No atomics, so a call gives the same bits every time on the card too
+    (selective upload ranks blocks by these norms; a near-tie must not pick
+    another block from one call to the next). A split leaf's rows of one
+    group are added one after another in row order, as the CPU's
+    ``index_add`` adds them: ``_segments`` lays them out in columns."""
     acc = None
     for p, leaf in leaves_with_path(tree):
         x32 = leaf.float()
@@ -233,11 +239,37 @@ def group_norms(layout: GroupLayout, tree: Any,
         if idx is not None:
             per_row = x32.square().sum(
                 dim=tuple(range(batch_dims + 1, x32.dim())))  # [*B, D|L]
-            acc = acc.index_add(batch_dims, idx, per_row)
+            cols, gids = _segments(layout, p, per_row.shape[-1], leaf.device)
+            padded = torch.cat([per_row, per_row.new_zeros(
+                per_row.shape[:-1] + (1,))], -1)[..., cols]  # [*B, R, S]
+            seg = torch.zeros_like(padded[..., 0, :])
+            for j in range(padded.shape[-2]):
+                seg = seg + padded[..., j, :]
+            acc[..., gids] += seg  # one term per group: no two adds meet
         elif p in layout.leaf_group:
             s = x32.square().sum(dim=tuple(range(batch_dims, x32.dim())))
             acc[..., layout.leaf_group[p]] += s
     return acc
+
+
+def _segments(layout: GroupLayout, path: str, rows: int,
+              device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A split leaf's rows by group: ``cols`` [R, S] holds, in column s,
+    the rows of group ``gids[s]`` in order, padded with ``rows`` (an index
+    past the last row, a zero) to the longest group's R rows."""
+    key = ("segments", path, rows, str(device))
+    if key not in layout._index:
+        g = layout.split_index(path, rows, "cpu").numpy()
+        gids = np.unique(g)
+        members = [np.nonzero(g == k)[0] for k in gids]
+        R = max(len(m) for m in members)
+        cols = np.full((R, len(gids)), rows, np.int64)
+        for s, m in enumerate(members):
+            cols[:len(m), s] = m
+        layout._index[key] = (torch.as_tensor(cols, device=device),
+                              torch.as_tensor(gids, dtype=torch.int64,
+                                              device=device))
+    return layout._index[key]
 
 
 def weighted_combine(layout: GroupLayout, deltas: Any,

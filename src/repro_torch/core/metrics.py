@@ -1,6 +1,7 @@
 """Evaluation metrics (paper VI-A1): macro-F1, the per-modality F1
-breakdown (Fig. 6: the model evaluated with only that modality present) and
-the rare-modality F1 (mean over the small-cohort modalities)."""
+breakdown (Fig. 6: the model evaluated with only that modality present),
+the rare-modality F1 (mean over the small-cohort modalities) and the
+time to accuracy."""
 from __future__ import annotations
 
 import numpy as np
@@ -52,3 +53,12 @@ def per_modality_f1(params, cfg, xs, ys, batch: int = 256) -> dict[str, float]:
 
 def rare_modality_f1(per_mod: dict[str, float], rare: tuple[str, ...]) -> float:
     return float(np.mean([per_mod[m] for m in rare]))
+
+
+def time_to_accuracy(f1_curve: list[float], times: list[float],
+                     threshold: float) -> float | None:
+    """Wall-clock (simulated) time at which F1 first reaches threshold."""
+    for f, t in zip(f1_curve, np.cumsum(times)):
+        if f >= threshold:
+            return float(t)
+    return None

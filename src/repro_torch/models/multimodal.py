@@ -193,6 +193,16 @@ def init_mm_model(generator: torch.Generator | None, cfg: MMConfig,
     return params
 
 
+def split_modalities(cfg: MMConfig, x: torch.Tensor
+                     ) -> dict[str, torch.Tensor]:
+    """x: [B, T, total_channels] (ordered concat) -> per-modality slices."""
+    out, off = {}, 0
+    for m in cfg.modalities:
+        out[m.name] = x[..., off: off + m.channels]
+        off += m.channels
+    return out
+
+
 def mm_features(params: dict, cfg: MMConfig, x: torch.Tensor,
                 modality_mask: torch.Tensor) -> torch.Tensor:
     """-> fused-input features h = [h_1; ...; h_M] with absent blocks zeroed.
@@ -200,11 +210,11 @@ def mm_features(params: dict, cfg: MMConfig, x: torch.Tensor,
     x: [B, T, total_channels]; modality_mask: [M] or [B, M]. h_m := E_m(x_m)
     * mask_m, so an absent modality's fusion rows get exactly zero gradient.
     """
+    xs = split_modalities(cfg, x)
     lora_enc = params.get("lora", {}).get("encoders")
-    hs, off = [], 0
+    hs = []
     for i, m in enumerate(cfg.modalities):
-        xm = x[..., off: off + m.channels]
-        off += m.channels
+        xm = xs[m.name]
         if cfg.backbone == "cnn":
             h = _cnn_encoder(params["base"]["encoders"][m.name], xm)
         else:

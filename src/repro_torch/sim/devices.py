@@ -82,6 +82,14 @@ class FleetConfig:
                            self.idle_power[idx], self.bandwidth_mbps[idx],
                            self.names_array()[idx].tolist())
 
+    @classmethod
+    def from_scenario(cls, spec) -> FleetConfig:
+        """Build the fleet a :class:`repro_torch.sim.scenarios.ScenarioSpec`
+        describes (tier counts, hetero scale, missing-modality generator)."""
+        from repro_torch.sim.scenarios import build_fleet  # import cycle
+
+        return build_fleet(spec)
+
 
 def make_fleet(n_full: int, n_mid: int, n_low: int, M: int = 4,
                mid_modalities: tuple[int, ...] = (0, 1),

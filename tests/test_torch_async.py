@@ -127,19 +127,34 @@ def test_two_flushes_paper_fleet_match_reference(setup, strategy, codec):
 
 
 def test_unported_options_raise(setup):
-    """Only selective upload and modality schedules are left unported; both
-    runtimes refuse them (robust reducers, faults, rank caps and Backbone 2
-    are taken: tests/test_torch_async_b2.py)."""
+    """Every option of the reference is ported; both runtimes refuse what
+    the reference's refuse: ``alloc="random"`` under a modality schedule
+    and a schedule of another (N, M) than the fleet's, and the vectorized
+    one selective upload outside grad mode "dispatch"."""
+    from repro_torch.sim import streaming_schedule
+
     _, _, _, tds, ttask, ttr0 = setup
     fleet = t_fleet(2, 0, 0, M=4)
+    sched = streaming_schedule(fleet.modality_mask, 0.3, 40.0, 0)
+    wrong = streaming_schedule(np.ones((3, 4), bool), 0.3, 40.0, 0)
     for run_cls in (TA.AsyncFedRun, TA.VectorizedAsyncFedRun):
-        for strat, fed in (
-                (TS.relief_selective(), TA.AsyncFedConfig(rounds=1)),
-                (TS.fedmfs_selective(), TA.AsyncFedConfig(rounds=1)),
-                (TS.async_relief(),
-                 TA.AsyncFedConfig(rounds=1, modality_schedule=object()))):
-            with pytest.raises(NotImplementedError):
-                run_cls.create(ttask, ttr0, strat, fleet, fed)
+        with pytest.raises(ValueError, match="random"):
+            run_cls.create(ttask, ttr0, TS.get("async_relief", alloc="random"),
+                           fleet, TA.AsyncFedConfig(rounds=1,
+                                                    modality_schedule=sched))
+        with pytest.raises(ValueError, match="does not match fleet"):
+            run_cls.create(ttask, ttr0, TS.async_relief(), fleet,
+                           TA.AsyncFedConfig(rounds=1,
+                                             modality_schedule=wrong))
+        for strat in (TS.relief_selective(), TS.fedmfs_selective()):
+            run_cls.create(ttask, ttr0, strat, fleet,
+                           TA.AsyncFedConfig(rounds=1,
+                                             modality_schedule=sched))
+    for grad_mode in ("cohort", "none"):
+        with pytest.raises(ValueError, match="selective upload"):
+            TA.VectorizedAsyncFedRun.create(
+                ttask, ttr0, TS.relief_selective(), fleet,
+                TA.AsyncFedConfig(rounds=1, grad_mode=grad_mode))
     with pytest.raises(ValueError, match="uplink_codec"):
         TA.AsyncFedRun.create(ttask, ttr0, TS.async_relief(), fleet,
                               TA.AsyncFedConfig(rounds=1, uplink_codec="int4"))

@@ -1013,3 +1013,99 @@ def test_vectorized_cohort_flush_on_card_matches_cpu(dev, codec):
     for p in tp:
         torch.testing.assert_close(tc[p], tp[p], atol=1e-4 + sc.get(p, 0.0),
                                    rtol=0, msg=p)
+
+
+def _seeded_tree(tr0, K, seed, where):
+    from repro_torch.tree import tree_map
+
+    g = torch.Generator().manual_seed(seed)
+    return tree_map(lambda x: (0.01 * torch.randn((K,) + tuple(x.shape),
+                                                  generator=g)).to(where),
+                    tr0)
+
+
+@pytest.mark.parametrize("K", [4, 64])
+def test_group_norms_are_bitwise_repeatable_on_card(dev, K):
+    """``mdlora.group_norms`` on B2 FULL client-stacked deltas: two calls on
+    the card give the same bits (no atomics), and the card's norms agree
+    with the CPU's (fp32 sums over a row in another order)."""
+    from repro_torch.core import mdlora
+
+    task, tr0 = _b2_task("cpu")
+    d = _seeded_tree(tr0, K, K, "cpu")
+    dc = _seeded_tree(tr0, K, K, dev)
+    a = mdlora.group_norms(task.layout, dc, batch_dims=1)
+    b = mdlora.group_norms(task.layout, dc, batch_dims=1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), mdlora.group_norms(
+        task.layout, d, batch_dims=1), atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["small", "full"])
+def test_selective_upload_on_card_equals_cpu(dev, full):
+    """FedMFS's upload rows S_up from the same B2 deltas on the card and on
+    the CPU, two budgets; the gated rows equal the CPU's exactly."""
+    from repro_torch.core.async_engine import _gate_rows, _selective_upload
+    from repro_torch.tree import leaves_with_path
+
+    task, tr0 = _b2_task("cpu", full=full)
+    K, G = 8, task.layout.G
+    d = _seeded_tree(tr0, K, 5, "cpu")
+    dc = _seeded_tree(tr0, K, 5, dev)
+    S = np.random.default_rng(2).random((K, G)) > 0.25
+    S &= task.layout.sizes[None, :] > 0
+    for budget in (0.3, 0.5):
+        up = _selective_upload(task.layout, d, S, budget)
+        assert np.array_equal(_selective_upload(task.layout, dc, S, budget),
+                              up)
+        gc = dict(leaves_with_path(_gate_rows(task.layout, dc, up)))
+        for p, v in leaves_with_path(_gate_rows(task.layout, d, up)):
+            assert torch.equal(gc[p].cpu(), v), p
+
+
+def test_stream_heap_and_vectorized_equal_on_card(dev):
+    """stream30 on PAMAP2_B2_SMALL (fedmfs_selective, 3 flushes) through
+    ``make_run`` on the card: the heap and the vectorized runtime's flush
+    histories equal, losses to rtol 1e-5; one aggregation launch per
+    flush each."""
+    from repro_torch.sim import get_scenario, make_run
+
+    spec = get_scenario("stream30", strategy="fedmfs_selective",
+                        backbone="transformer", small_model=True,
+                        windows_per_subject=40, local_epochs=1,
+                        steps_per_epoch=2, batch_size=8, eval_every=0,
+                        total_updates=12)
+    hists = []
+    for vec in (False, True):
+        run, sc = make_run(spec, vec, device=dev)
+        ops.reset_launches()
+        hists.append(run.run(sc.dataset))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["cohort_agg_divergence"] == run.state.round == 3
+    h, v = hists
+    for key in ("flush", "staleness_mean", "selected_frac", "sim_time_s",
+                "energy_j"):
+        assert v[key] == h[key], key
+    np.testing.assert_allclose(v["upload_mb"], h["upload_mb"], rtol=1e-9)
+    np.testing.assert_allclose(v["loss"], h["loss"], rtol=1e-5)
+
+
+def test_run_spec_on_card_matches_cpu(dev):
+    """One experiment-runner run (relief, PAMAP2 B2 small width, 2 rounds)
+    on the card against the CPU from the same seed: simulated time, energy
+    and upload equal, losses to rtol 1e-4, macro-F1 to atol 0.02."""
+    from repro_torch.launch import experiments as X
+
+    spec = X.BenchSpec("relief", "pamap2", "b2", 2, windows=40)
+    got = {where: X.run_spec(spec, verbose=False, device=where,
+                             cache_dir=None) for where in (dev, "cpu")}
+    c, p = got[dev], got["cpu"]
+    assert c["device"] != "cpu" and p["device"] == "cpu"
+    for key in ("round_times", "energy_j", "upload_mb", "selected_frac",
+                "f1_rounds"):
+        assert c[key] == p[key], key
+    np.testing.assert_allclose(c["loss_curve"], p["loss_curve"], rtol=1e-4)
+    np.testing.assert_allclose(c["f1_curve"], p["f1_curve"], atol=0.02)
+    for m, v in p["per_modality_f1"].items():
+        np.testing.assert_allclose(c["per_modality_f1"][m], v, atol=0.02)

@@ -451,15 +451,17 @@ def test_entry_point_runs_on_cpu(capsys):
 
 def test_async_runtime_refuses_backbone2(b2):
     """Backbone 2 is no longer refused by the async runtimes: both build on
-    it, the buffer takes its layer-stacked groups, and what they still
-    refuse on it is only what is unported everywhere (selective upload)."""
+    it, the buffer takes its layer-stacked groups, and selective upload is
+    taken too (by the vectorized runtime in grad mode "dispatch" only, as
+    in the reference)."""
     _, _, ttask, ttr0 = b2
     assert ttask.layout.leaf_axis0_groups
     for run_cls in (TA.AsyncFedRun, TA.VectorizedAsyncFedRun):
-        run = run_cls.create(ttask, ttr0, TS.async_relief(),
-                             t_fleet(2, 0, 0, M=4),
-                             TA.AsyncFedConfig(rounds=1))
-        assert run.aggbuf.layout is ttask.layout
-        with pytest.raises(NotImplementedError, match="selective"):
-            run_cls.create(ttask, ttr0, TS.relief_selective(),
-                           t_fleet(2, 0, 0, M=4), TA.AsyncFedConfig(rounds=1))
+        for strat in (TS.async_relief(), TS.relief_selective()):
+            run = run_cls.create(ttask, ttr0, strat, t_fleet(2, 0, 0, M=4),
+                                 TA.AsyncFedConfig(rounds=1))
+            assert run.aggbuf.layout is ttask.layout
+    with pytest.raises(ValueError, match="selective upload"):
+        TA.VectorizedAsyncFedRun.create(
+            ttask, ttr0, TS.relief_selective(), t_fleet(2, 0, 0, M=4),
+            TA.AsyncFedConfig(rounds=1, grad_mode="cohort"))
