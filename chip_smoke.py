@@ -136,6 +136,24 @@ Phases, each printing its lines (and its wall time) before the last:
               2 flushes, on the card against the CPU from the same seed:
               every dispatch's upload rows S_up and the flush histories
               equal, losses to rtol 1e-4, the trainable to atol 1e-4
+ 24. paper experiments  Table III (``experiments.ablation``) on PAMAP2 B2
+              FULL (fedavg, relief, v1-v3) and Fig. 8
+              (``experiments.device_profile``) on MHEALTH B2 FULL (fedavg
+              and relief under both timing models), 2 rounds per run,
+              nothing cached: each run's line with its device and host
+              time, the rows, the fused projection's launches (per run:
+              rounds x 20 + (evaluations + 4 per-modality) x batches);
+              kernels 1, 2 and 4 none
+ 25. motivation  Figs. 2-3 (``experiments.motivation``): the instrumented
+              FedAvg, 3 rounds, on PAMAP2 B1 FULL (the script's model: no
+              fusion LoRA, so no fused-kernel launch) and B2 FULL (3 rounds
+              x 2 local updates x 8 steps); the cosines by block (finite, in
+              [-1, 1]) and the divergence by block and phase
+ 26. checkpoint  ``train_relief_har``'s run on PAMAP2 B2 FULL: 2 rounds and
+              a save, a fresh run resumed from it (trainable and dbar
+              bitwise equal on the card and after a restore onto the CPU),
+              a third round and its loss; a leftover half-written
+              ``step_<n>.tmp.*`` directory, which ``latest_step()`` ignores
 Each path's launch counts are zeroed just before it and read just after.
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero,
@@ -149,6 +167,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1982,6 +2001,186 @@ def scenario_check(torch, sim, async_engine) -> None:
         fail("stream30 fedmfs_selective on the card disagrees with the CPU")
 
 
+# -- phases 24-26 -----------------------------------------------------------
+
+PAPER_ROUNDS = 2  # rounds per run of Table III and Fig. 8 (phase 24)
+MOTIVATION_ROUNDS = 3  # instrumented FedAvg rounds of Figs. 2-3 (phase 25)
+
+
+def _run_launches(get_provider, spec) -> int:
+    """Fused-projection launches of one ``run_spec`` run: rounds x E x
+    steps, and (evaluations + one per modality) x evaluation batches."""
+    provider = get_provider(spec.dataset)
+    ds = provider.build(seed=spec.seed, n_clients=8 if spec.dataset ==
+                        "pamap2" else 10, windows_per_subject=spec.windows)
+    every = max(spec.rounds // 10, 1)  # FedRun.run's evaluation rounds
+    evals = sum((r + 1) % every == 0 or r == spec.rounds - 1
+                for r in range(spec.rounds))
+    modalities = provider.mm_config("transformer").M
+    return spec.rounds * 20 + (evals + modalities) * _eval_batches(ds)
+
+
+def paper_path(torch, ops, md_ops, experiments, get_provider) -> int:
+    """Phase 24: Table III on PAMAP2 B2 FULL (fedavg, relief, v1-v3) and
+    Fig. 8 on MHEALTH B2 FULL (fedavg and relief under both timing models),
+    ``PAPER_ROUNDS`` rounds per run, nothing cached."""
+    total = 0
+    for tag, fn, kw, specs in (
+            ("ablation", experiments.ablation,
+             dict(backbones=("b2",), datasets=("pamap2",)),
+             [experiments.BenchSpec(m, "pamap2", "b2", PAPER_ROUNDS,
+                                    small=False)
+              for m in ["fedavg"] + experiments.ABLATION_VARIANTS]),
+            ("device-profile", experiments.device_profile,
+             dict(backbones=("b2",)),
+             [experiments.BenchSpec(m, "mhealth", "b2", PAPER_ROUNDS,
+                                    sim_mode=mode, small=False)
+              for mode in ("flop_proportional", "fwd_aware")
+              for m in ("fedavg", "relief")])):
+        ops.reset_launches()
+        md_ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(PAPER_ROUNDS, small=False, device="cuda", cache_dir=None,
+                 out_dir=None, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {**ops.LAUNCHES, **md_ops.LAUNCHES}
+        want = sum(_run_launches(get_provider, s) for s in specs)
+        rows = out if isinstance(out, list) else [
+            {"backbone": b, **{k: v for k, v in r.items()
+                               if not k.endswith("_f1_at_energy")}}
+            for b, r in out.items()]
+        for r in rows:
+            say(f"[paper] {tag} B2 FULL, {PAPER_ROUNDS} rounds (synthetic "
+                f"data): " + ", ".join(
+                    f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in r.items()))
+        say(f"[paper] {tag}: {len(specs)} runs, host wall {wall:.2f}s "
+            f"({wall / (len(specs) * PAPER_ROUNDS):.3f} s per round with "
+            f"its evaluations); launches {n} (expected mdlora_matmul {want} "
+            f"= per run {PAPER_ROUNDS} rounds x 20 steps + ({PAPER_ROUNDS} "
+            "evaluations + 4 per-modality) x evaluation batches; kernels 1, "
+            "2 and 4 none)")
+        if (n["mdlora_matmul"] != want or n["mdlora_matmul_multi"]
+                or n["cohort_agg_divergence"]
+                or n["cohort_agg_divergence_quant"]):
+            fail(f"{tag} did not launch the kernels its path requires")
+        if isinstance(out, list):
+            bad = [r for r in out if not (0.0 <= r["f1_pamap2"] <= 1.0
+                                          and r["speedup"] > 0)]
+        else:
+            bad = [b for b, r in out.items() if not (
+                r["sim_speedup_flop_proportional"] > 0
+                and r["speedup_fwd_aware"] > 0
+                and math.isfinite(r["energy_save_pct_fwd_aware"]))]
+        if bad:
+            fail(f"{tag}: bad rows {bad}")
+        total += n["mdlora_matmul"]
+    return total
+
+
+def motivation_path(torch, ops, md_ops, experiments) -> int:
+    """Phase 25: Figs. 2-3's instrumented FedAvg on PAMAP2 FULL,
+    ``MOTIVATION_ROUNDS`` rounds: Backbone 1 (the script's model; its
+    fusion is the full-parameter blocked weight, a cuBLAS product, so the
+    fused kernel does not run) and Backbone 2 (the fused kernel in both
+    local updates of each round)."""
+    total = 0
+    for backbone in ("b1", "b2"):
+        ops.reset_launches()
+        md_ops.reset_launches()
+        out = experiments.motivation(MOTIVATION_ROUNDS, backbone=backbone,
+                                     small=False, device="cuda",
+                                     cache_dir=None)
+        torch.cuda.synchronize()
+        n = {**ops.LAUNCHES, **md_ops.LAUNCHES}
+        want = MOTIVATION_ROUNDS * 2 * 8 if backbone == "b2" else 0
+        fig2, fig3 = out["fig2_block_cosine"], out["fig3_divergence_phases"]
+        for pt, blocks in fig2.items():
+            say(f"[motivation] {backbone} FULL Fig. 2 {pt}: " + ", ".join(
+                f"{b} {v:.4f}" for b, v in blocks.items()))
+        for blk, vals in fig3.items():
+            say(f"[motivation] {backbone} FULL Fig. 3 {blk} by phase: "
+                + ", ".join(f"{v:.6f}" for v in vals))
+        say(f"[motivation] {backbone} FULL: Mag/Acc "
+            f"{[round(v, 4) for v in out['obs2_rare_to_common_ratio']]}; "
+            f"host {out['host_wall_s']:.2f}s for {MOTIVATION_ROUNDS} rounds "
+            f"on {out['device']}; launches {n} (expected mdlora_matmul "
+            f"{want} = {MOTIVATION_ROUNDS} rounds x 2 local updates x 8 "
+            "steps" + (")" if backbone == "b2" else
+                       ": Backbone 1 has no fusion LoRA)"))
+        cos = [v for blocks in fig2.values() for v in blocks.values()]
+        if not all(math.isfinite(v) and -1.0 <= v <= 1.0 for v in cos) or \
+                len(fig3) != 4 or any(len(v) != min(5, MOTIVATION_ROUNDS)
+                                      for v in fig3.values()):
+            fail(f"motivation {backbone}: bad figures {out}")
+        if (n["mdlora_matmul"] != want or n["mdlora_matmul_multi"]
+                or n["cohort_agg_divergence"]
+                or n["cohort_agg_divergence_quant"]):
+            fail(f"motivation {backbone} did not launch the kernels its "
+                 "path requires")
+        total += n["mdlora_matmul"]
+    return total
+
+
+def checkpoint_path(torch, md_ops, train_relief_har, checkpoint) -> int:
+    """Phase 26: ``train_relief_har``'s run on PAMAP2 B2 FULL saved at round
+    2, a fresh run resumed from it (trainable and dbar bitwise, on the card
+    and onto the CPU), one more round, and a leftover temp directory that
+    ``latest_step()`` ignores."""
+    import numpy as np
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = checkpoint.CheckpointManager(d, keep=2)
+        run, ds = train_relief_har.build(device="cuda")
+        batches = _eval_batches(ds)
+        md_ops.reset_launches()
+        t0 = time.perf_counter()
+        train_relief_har.train(run, ds, 2, ckpt=ckpt, ckpt_every=2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        saved = {p: t.clone() for p, t in
+                 leaves_with_path(run.state.trainable)}
+        dbar = run.state.dbar.copy()
+        run, _ = train_relief_har.build(device="cuda")
+        start = train_relief_har.resume(run, ckpt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        same = start == 2 and np.array_equal(run.state.dbar, dbar) and all(
+            t.device.type == "cuda" and torch.equal(t, saved[p])
+            for p, t in leaves_with_path(run.state.trainable))
+        host, meta = ckpt.restore(2, {"trainable": tree_map(
+            lambda t: t.cpu(), run.state.trainable)})
+        same_cpu = np.array_equal(np.asarray(meta["dbar"]), dbar) and all(
+            t.device.type == "cpu" and torch.equal(t, saved[p].cpu())
+            for p, t in leaves_with_path(host["trainable"]))
+        hist = train_relief_har.train(run, ds, 3, start, ckpt, 2)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        n = md_ops.LAUNCHES["mdlora_matmul"]
+        want = 3 * 20 + 2 * batches
+        leftover = Path(d) / "step_00000003.tmp.1.2"
+        leftover.mkdir()
+        (leftover / "manifest.json").write_text("{}")
+        latest = ckpt.latest_step()
+        mb = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+        say(f"[checkpoint] PAMAP2 B2 FULL relief: 2 rounds + save "
+            f"{t1 - t0:.2f}s, build + resume {t2 - t1:.2f}s, round 3 "
+            f"{t3 - t2:.2f}s host wall; resumed at round {start}, trainable "
+            f"and dbar bitwise equal on the card: {same}, restored onto the "
+            f"CPU: {same_cpu}; round 3 loss {hist['loss'][-1]:.4f}, F1 "
+            f"{hist['f1'][-1]:.4f}; latest_step() {latest} beside a "
+            f"leftover {leftover.name}/; {mb / 2**20:.3f} MiB on disk; "
+            f"launches mdlora_matmul {n} (expected {want} = 3 rounds x 20 "
+            f"steps + 2 evaluations x {batches} batches)")
+        if not (same and same_cpu) or latest != 2 or n != want or \
+                not math.isfinite(hist["loss"][-1]):
+            fail("the checkpointed sync run did not save, resume and go on "
+                 "as it must")
+    return n
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2107,6 +2306,14 @@ def main() -> None:
     launches["mdlora_matmul"] += phase("experiments", experiments_path, torch,
                                        md_ops, experiments, get_provider)
     phase("scenario check", scenario_check, torch, sim, async_engine)
+    from repro_torch import checkpoint
+    launches["mdlora_matmul"] += phase("paper experiments", paper_path,
+                                       torch, ops, md_ops, experiments,
+                                       get_provider)
+    launches["mdlora_matmul"] += phase("motivation", motivation_path, torch,
+                                       ops, md_ops, experiments)
+    launches["mdlora_matmul"] += phase("checkpoint", checkpoint_path, torch,
+                                       md_ops, train_relief_har, checkpoint)
     lines = []
     for name, replaces in KERNELS.items():
         lines.append(dict(

@@ -365,6 +365,18 @@ class FedRun:
     def _has_personal(self) -> bool:
         return any(leaves(self.personal_mask))
 
+    # -- data plumbing --------------------------------------------------------
+
+    def _round_batches(self, dataset) -> dict:
+        """Every client's local-training batches for one round, drawn from
+        the run's rng (the round draws through this, as does an instrumented
+        caller such as ``experiments.motivation``)."""
+        fed = self.fed
+        return draw_client_batches(
+            self.state.rng, dataset, range(self.fleet.N),
+            fed.local_epochs * fed.steps_per_epoch, fed.batch_size,
+            self.device)
+
     # -- one round ------------------------------------------------------------
 
     def round(self, dataset) -> dict:
@@ -390,9 +402,7 @@ class FedRun:
         S &= participating[:, None]
 
         # --- clients: local training
-        steps = fed.local_epochs * fed.steps_per_epoch
-        batches = draw_client_batches(state.rng, dataset, range(N), steps,
-                                      fed.batch_size, dev)
+        batches = self._round_batches(dataset)
         start = self._start_trainable()
         trained = torch.as_tensor(S, **f32)
         mmasks = torch.as_tensor(fleet.modality_mask, **f32)

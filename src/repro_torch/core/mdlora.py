@@ -61,6 +61,10 @@ class GroupLayout:
     def G(self) -> int:
         return len(self.names)
 
+    def group_ids(self, kind: str) -> np.ndarray:
+        return np.array([i for i, k in enumerate(self.kinds) if k == kind],
+                        np.int32)
+
     def accessible(self, modality_mask: np.ndarray) -> np.ndarray:
         """modality_mask: [N, M] -> accessible groups G_n: [N, G] bool."""
         mm = np.asarray(modality_mask, bool)

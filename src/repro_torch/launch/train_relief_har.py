@@ -8,8 +8,16 @@ F1 breakdown at the end (paper Fig. 6).
     python -m repro_torch.launch.train_relief_har [--dataset pamap2]
         [--backbone b2] [--strategy relief] [--rounds 50] [--dropout 0.1]
         [--small] [--seed 0] [--device cuda]
+        [--ckpt-dir DIR] [--ckpt-every 20]
 
-No checkpointing: a run starts from its seed and is not resumed.
+With ``--ckpt-dir`` the server state is saved every ``--ckpt-every`` rounds
+(``repro_torch.checkpoint``, the reference's layout), and a run started on
+a directory that holds a checkpoint resumes from its latest one, as the
+reference's ``examples/train_relief_har.py`` does: it restores the global
+trainable tree and the divergence EMA ``dbar`` and goes on from the saved
+round. The round counter, the rng, the magnitude EMA, the per-client state
+and the history start fresh, so a resumed run does not repeat the
+uninterrupted one.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.relief_har import CONFIGS
 from repro_torch.core import strategies
 from repro_torch.core.engine import FedConfig, FedRun
@@ -53,6 +62,42 @@ def build(dataset: str = "pamap2", backbone: str = "b2",
     return FedRun.create(task, tr0, strategies.get(strategy), fleet, fed), ds
 
 
+def resume(run: FedRun, ckpt: CheckpointManager) -> int:
+    """Load the latest checkpoint's trainable tree and ``dbar`` into
+    ``run`` -> the round to go on from (0 when there is none)."""
+    restored = ckpt.restore_latest({"trainable": run.state.trainable})
+    if restored is None:
+        return 0
+    tree, meta = restored
+    run.state.trainable = tree["trainable"]
+    run.state.dbar = np.asarray(meta["dbar"])
+    return meta["step"]
+
+
+def train(run: FedRun, ds: HARDataset, rounds: int, start: int = 0,
+          ckpt: CheckpointManager | None = None,
+          ckpt_every: int = 20) -> dict:
+    """Rounds ``start`` .. ``rounds`` - 1: an evaluation every
+    ``eval_every`` rounds and after the last, a checkpoint (metadata
+    ``dbar`` and ``strategy``) every ``ckpt_every``. From round 0 without
+    ``ckpt`` this is ``run.run(ds)``."""
+    every = run.fed.eval_every
+    for r in range(start, rounds):
+        rec = run.round(ds)
+        if (r + 1) % every == 0 or r == rounds - 1:
+            f1 = run.evaluate(ds)
+            run.history["f1"].append(f1)
+            run.history["f1_round"].append(rec["round"])
+            print(f"[round {r + 1:4d}] loss {rec['loss']:.4f} F1 {f1:.4f} "
+                  f"t/r {rec['round_time_s']:.2f}s "
+                  f"sel {rec['selected_frac']:.2f}")
+        if ckpt is not None and (r + 1) % ckpt_every == 0:
+            ckpt.save(r + 1, {"trainable": run.state.trainable},
+                      {"dbar": run.state.dbar.tolist(),
+                       "strategy": run.strategy.name})
+    return run.history
+
+
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(
         description=__doc__,
@@ -71,6 +116,10 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save (and resume from) checkpoints here; none "
+                         "without it")
+    ap.add_argument("--ckpt-every", type=int, default=20)
     args = ap.parse_args(argv)
 
     run, ds = build(args.dataset, args.backbone, args.strategy, args.rounds,
@@ -83,8 +132,19 @@ def main(argv: list[str] | None = None) -> dict:
           f"({100 * n_train / n_total:.2f}%), G={task.layout.G} groups, "
           f"fleet N={run.fleet.N}, client dropout p={args.dropout}, "
           f"strategy {args.strategy}, device={args.device}")
+    ckpt, start = None, 0
+    if args.ckpt_dir is not None:
+        ckpt = CheckpointManager(args.ckpt_dir, keep=2)
+        start = resume(run, ckpt)
+        if start:
+            print(f"[train_relief_har] resumed from round {start} "
+                  f"({args.ckpt_dir})")
+    if start >= args.rounds:
+        print(f"[train_relief_har] nothing to run: the checkpoint is at "
+              f"round {start}, --rounds {args.rounds}")
+        return run.history
     t0 = time.perf_counter()
-    hist = run.run(ds, log_every=run.fed.eval_every)
+    hist = train(run, ds, args.rounds, start, ckpt, args.ckpt_every)
     print(f"[train_relief_har] {run.state.round} rounds: loss "
           f"{hist['loss'][-1]:.4f}, F1 {hist['f1'][-1]:.4f}, simulated "
           f"{sum(hist['round_time_s']):.2f}s, energy "

@@ -1109,3 +1109,60 @@ def test_run_spec_on_card_matches_cpu(dev):
     np.testing.assert_allclose(c["f1_curve"], p["f1_curve"], atol=0.02)
     for m, v in p["per_modality_f1"].items():
         np.testing.assert_allclose(c["per_modality_f1"][m], v, atol=0.02)
+
+
+def _ckpt_tree(where):
+    g = torch.Generator().manual_seed(7)
+    return {"enc": {"w": torch.randn((3, 4), generator=g).to(where),
+                    "b": torch.randn((5,), generator=g).bfloat16().to(where)},
+            "steps": torch.tensor([7, -2], dtype=torch.int32).to(where)}
+
+
+def test_checkpoint_moves_between_card_and_cpu_bitwise(dev, tmp_path):
+    """A checkpoint saved from card tensors restores onto the CPU bit for
+    bit, and one saved from CPU tensors onto the card; a bf16 leaf keeps
+    its bits both ways."""
+    from repro_torch.checkpoint import restore_tree, save_tree
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    for src, dst in ((dev, torch.device("cpu")), (torch.device("cpu"), dev)):
+        tree = _ckpt_tree(src)
+        path = str(tmp_path / f"from_{src.type}")
+        save_tree(path, tree, {"from": src.type})
+        like = tree_map(lambda t: torch.zeros_like(t, device=dst), tree)
+        got, meta = restore_tree(path, like)
+        assert meta == {"from": src.type}
+        want = dict(leaves_with_path(tree))
+        for p, t in leaves_with_path(got):
+            assert t.device.type == dst.type and t.dtype == want[p].dtype, p
+            a, b = t.cpu(), want[p].cpu()
+            if a.dtype == torch.bfloat16:
+                a, b = a.view(torch.int16), b.view(torch.int16)
+            assert torch.equal(a, b), p
+
+
+def test_motivation_on_card_matches_cpu(dev):
+    """Figs. 2-3 (PAMAP2_B1_SMALL, 2 instrumented FedAvg rounds) on the card
+    against the CPU from the same seed, at the CPU test's tolerances: the
+    cosines to atol 1e-4, divergences and Mag/Acc ratios to rtol 1e-3
+    (cuDNN's convolutions with TF32 off)."""
+    from repro_torch.launch import experiments as X
+
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = {where: X.motivation(2, device=where, cache_dir=None)
+               for where in (dev, "cpu")}
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    c, p = got[dev], got["cpu"]
+    assert c["device"] != "cpu" and p["device"] == "cpu"
+    for pt, blocks in p["fig2_block_cosine"].items():
+        assert list(c["fig2_block_cosine"][pt]) == list(blocks)
+        np.testing.assert_allclose(list(c["fig2_block_cosine"][pt].values()),
+                                   list(blocks.values()), atol=1e-4)
+    for blk, vals in p["fig3_divergence_phases"].items():
+        np.testing.assert_allclose(c["fig3_divergence_phases"][blk], vals,
+                                   rtol=1e-3)
+    np.testing.assert_allclose(c["obs2_rare_to_common_ratio"],
+                               p["obs2_rare_to_common_ratio"], rtol=1e-3)
