@@ -87,10 +87,10 @@ Phases, each printing its lines (and its wall time) before the last:
               ``train_relief_har.build``: three rounds of relief and three of
               fedavg, launch counts zeroed just before each and read just
               after (rounds x E x steps + the evaluation's batches); then
-              a relief round under the profiler in a child process
-              (``--profile-sync``; device busy time, idle share, launches,
-              top kernels): in this one the profiler's hooks slowed every
-              later host-bound phase
+              a relief round of one local epoch (4 steps) under the
+              profiler in a child process (``--profile-sync``; device busy
+              time, idle share, launches, top kernels): in this one the
+              profiler's hooks slowed every later host-bound phase
  16. sync check  one PAMAP2_B2_SMALL relief round on the card against the
               same round on the CPU, and PAMAP2_B2 FULL logits card vs CPU
  17. async b2  the asynchronous runtime (AsyncFedRun) on full-width PAMAP2
@@ -154,6 +154,32 @@ Phases, each printing its lines (and its wall time) before the last:
               bitwise equal on the card and after a restore onto the CPU),
               a third round and its loss; a leftover half-written
               ``step_<n>.tmp.*`` directory, which ``latest_step()`` ignores
+ 27. zoo kernels  flash attention and the gathered projection vs their
+              plain versions at the rest of the zoo's shapes, as phase 6
+              reports them: mixtral's 4096-token window over a ring that
+              has wrapped (decode and prefill) and its path shape,
+              granite-34b's MQA (G = 48: its decode calls take the prefill
+              path), musicgen's MHA (hd 64), llava's G = 7 at a 3072-position
+              prefill; the projection at mixtral's wq, wv, wo and
+              granite-34b's wv (F = 128)
+ 28. moe serve  mixtral-8x7b at full width, 20 of its 32 layers (58.6 GB of
+              bf16 weights drawn on the card): ``serve.run_batched`` at B=8,
+              P=512, 32 decode steps (flash attention's calls by path
+              asserted), then ``serve.run_engine`` as phase 8 (16 adapters,
+              16 slots, 32 requests; the gathered projection's launches
+              asserted)
+ 29. zoo serve  ``serve.run_batched`` at B=8, P=512, 32 steps on granite-3-8b
+              and musicgen-large (all layers, musicgen's prompts and tokens
+              with 4 codebooks), granite-34b (20 of 88 layers),
+              mixtral-8x22b (8 of 56) and llava-next-34b (30 of 60; B=4,
+              2880 stub patch embeddings + 192 text tokens); flash
+              attention's calls by path asserted per arch; each model freed
+              before the next
+ 30. zoo check  a float32 two-layer model of each new family at d 512, card
+              vs CPU: batched prefill logits and tokens, mixtral's engine
+              tokens; one fp32 MoE layer at a prefill shape with capacity
+              drops: routings that differ (asserted 0), the kept (token,
+              expert) set and the output
 Each path's launch counts are zeroed just before it and read just after.
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero,
@@ -603,7 +629,8 @@ def _launches_per_call(torch, fn) -> int:
 def launch_counts_child() -> None:
     """The child mode: one JSON line {case: launches per call} for the
     cohort-agg kernels' CASES, the fused projection's FUSED_CASES, the
-    gathered projection's MD_CASES and the SSD scan's SSD_CASES."""
+    gathered projection's MD_CASES and ZOO_MD_CASES and the SSD scan's
+    SSD_CASES."""
     sys.path.insert(0, str(SRC))
     import torch
     from repro_torch.kernels.cohort_agg import ops
@@ -626,7 +653,7 @@ def launch_counts_child() -> None:
         args = _fused_inputs(torch, md_ops, K, T, D, F, r, share, bf16, 0)
         out[f"fused {label}"] = _launches_per_call(
             torch, lambda: md_ops.mdlora_matmul(*args, 2.0))
-    for label, B, D, F, A, r, blocks, bf16 in MD_CASES:
+    for label, B, D, F, A, r, blocks, bf16 in MD_CASES + ZOO_MD_CASES:
         x, w0, a, b, idx, mask = _md_inputs(torch, md_ops, B, D, F, A, r,
                                             blocks, bf16, D + F)
         out[f"mdlora {label}"] = _launches_per_call(
@@ -662,13 +689,17 @@ def _fa_inputs(torch, B, S, T, K, G, hd, filled, bf16, seed):
     k = torch.randn((B, T, K, hd), **kw).to(dt)
     v = torch.randn((B, T, K, hd), **kw).to(dt)
     ar = torch.arange(T, device="cuda", dtype=torch.int32)
-    kp = torch.where(ar < filled, ar, -1)  # a ring: filled slots, then -1
-    kp = kp[torch.randperm(T, device="cuda", generator=g)]
+    if filled > T:  # a ring that has wrapped: position p at slot p % T
+        kp = torch.empty_like(ar)
+        kp[(ar + filled - T) % T] = ar + filled - T
+    else:  # filled slots in no order, then -1
+        kp = torch.where(ar < filled, ar, -1)
+        kp = kp[torch.randperm(T, device="cuda", generator=g)]
     qp = torch.arange(filled - S, filled, device="cuda", dtype=torch.int32)
     return q, k, v, qp, kp
 
 
-def check_flash(torch, fa_ops, fa_ref) -> dict:
+def check_flash(torch, fa_ops, fa_ref, cases=FA_CASES) -> dict:
     import torch.nn.functional as F
 
     say("[flash] bf16 dynamic shared memory per launch (prefill / decode): "
@@ -676,7 +707,7 @@ def check_flash(torch, fa_ops, fa_ref) -> dict:
                     f"{fa_ops.smem_bytes(hd, 'decode')} B"
                     for hd in (32, 64, 128, 256)))
     out = {}
-    for (label, B, S, T, K, G, hd, filled, window, cap, bf16) in FA_CASES:
+    for (label, B, S, T, K, G, hd, filled, window, cap, bf16) in cases:
         q, k, v, qp, kp = _fa_inputs(torch, B, S, T, K, G, hd, filled, bf16,
                                      B + S + T)
         sets = _copies(torch, (q, k, v))
@@ -753,9 +784,9 @@ def _md_inputs(torch, md_ops, B, D, F, A, r, blocks, bf16, seed):
     return x, w0, a, b, idx, mask
 
 
-def check_mdlora(torch, md_ops, md_ref, counts) -> dict:
+def check_mdlora(torch, md_ops, md_ref, counts, cases=MD_CASES) -> dict:
     out = {}
-    for label, B, D, F, A, r, blocks, bf16 in MD_CASES:
+    for label, B, D, F, A, r, blocks, bf16 in cases:
         masked = blocks is not None
         x, w0, a, b, idx, mask = _md_inputs(torch, md_ops, B, D, F, A, r,
                                             blocks, bf16, D + F)
@@ -846,31 +877,60 @@ def _reset_all(kops) -> None:
         ops.reset_launches()
 
 
-def serve_batched(torch, serve, kops, cfg, params) -> int:
+def _flash_paths(fa_ops, cfg, steps: int) -> dict:
+    """Flash calls by path of a batched serve: each layer's prefill call
+    takes the prefill path; a decode call has S*G = G rows and takes the
+    split-KV decode path when G <= DECODE_ROWS, else the prefill path
+    (granite-34b's MQA: G = 48)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    want = {"fp32": 0, "prefill": cfg.n_layers, "decode": 0}
+    want["decode" if G <= fa_ops.DECODE_ROWS else "prefill"] += \
+        cfg.n_layers * steps
+    return want
+
+
+def serve_batched(torch, serve, kops, cfg, params, shape=SERVE,
+                  patches=None) -> dict:
+    """``serve.run_batched`` at ``shape`` (``patches`` first, for llava)
+    -> flash attention's calls by path, asserted against ``_flash_paths``
+    and against ``cfg.n_layers x (1 + decode steps)`` calls in all."""
+    fa_ops = kops[0]
     # cold start (cuBLAS handles, allocator growth) outside the window
-    serve.run_batched(cfg, params, batch=SERVE["batch"],
-                      prompt_len=SERVE["prompt_len"], decode_steps=2,
-                      device="cuda")
+    serve.run_batched(cfg, params, batch=shape["batch"],
+                      prompt_len=shape["prompt_len"], decode_steps=2,
+                      device="cuda", patches=patches)
     _reset_all(kops)
-    res = serve.run_batched(cfg, params, device="cuda", **SERVE)
+    res = serve.run_batched(cfg, params, device="cuda", patches=patches,
+                            **shape)
     n = _counts(kops)
+    by_path = dict(fa_ops.PATH_LAUNCHES)
     fa, md = n["flash_attention"], n["mdlora_matmul_multi"]
-    want = cfg.n_layers * (1 + SERVE["decode_steps"])
-    say(f"[serve] kernel launches: flash_attention {fa} (expected {want} = "
-        f"{cfg.n_layers} layers x (1 prefill + {SERVE['decode_steps']} "
-        f"decode steps)), mdlora_matmul_multi {md} (expected 0)")
+    want = cfg.n_layers * (1 + shape["decode_steps"])
+    say(f"[serve] {cfg.arch} kernel launches: flash_attention {fa} (expected "
+        f"{want} = {cfg.n_layers} layers x (1 prefill + "
+        f"{shape['decode_steps']} decode steps)), mdlora_matmul_multi {md} "
+        "(expected 0)")
     if fa != want or md != 0:
         fail("batched serve did not launch the kernels as its path requires")
+    paths = _flash_paths(fa_ops, cfg, shape["decode_steps"])
+    say(f"[serve] {cfg.arch} flash_attention calls by path: {by_path} "
+        f"(expected {paths}: G = {cfg.n_heads // cfg.n_kv_heads} rows per "
+        f"decode call, DECODE_ROWS = {fa_ops.DECODE_ROWS})")
+    if by_path != paths:
+        fail("batched serve did not take the prefill and decode paths")
     if not torch.isfinite(res["prefill_logits"]).all():
         fail("batched serve: non-finite logits")
-    B, P, n = SERVE["batch"], SERVE["prompt_len"], SERVE["decode_steps"]
-    say(f"[serve] {cfg.arch} FULL ({cfg.n_layers} layers, {cfg.dtype}) "
-        f"B={B} P={P}: prefill {res['prefill_s'] * 1e3:.1f} ms "
-        f"({B * P / res['prefill_s']:.0f} prompt tok/s); decode {n} steps "
-        f"in {res['decode_s']:.3f} s = {res['decode_ms_per_step']:.2f} ms "
-        f"per step, {res['tok_s']:.1f} tok/s; tokens in [0, {cfg.vocab}), "
-        f"logits finite; sample {res['tokens'][0, :8].tolist()}")
-    return fa
+    B, P, n = shape["batch"], shape["prompt_len"], shape["decode_steps"]
+    pre = 0 if patches is None else patches.shape[1]
+    say(f"[serve] {cfg.arch} FULL width ({cfg.n_layers} layers, {cfg.dtype})"
+        f" B={B} P={P}" + (f" after {pre} patches" if pre else "")
+        + f": prefill {res['prefill_s'] * 1e3:.1f} ms "
+        f"({B * (pre + P) / res['prefill_s']:.0f} prompt positions/s); "
+        f"decode {n} steps in {res['decode_s']:.3f} s = "
+        f"{res['decode_ms_per_step']:.2f} ms per step, {res['tok_s']:.1f} "
+        f"tok/s; tokens in [0, {cfg.vocab}), logits finite; sample "
+        f"{res['tokens'][0].reshape(-1)[:8].tolist()}")
+    return by_path
 
 
 def serve_engine(torch, serve, kops, cfg, params) -> int:
@@ -1135,11 +1195,13 @@ HYMBA_ENGINE = dict(n_adapters=16, batch=8, n_requests=16, prompt_len=32,
                     min_prompt_len=8, decode_steps=16)
 
 
-def recurrent_params(torch, serve, api, cfg) -> dict:
+def model_params(torch, serve, api, cfg) -> dict:
+    """Random weights of ``cfg`` drawn on the card from seed 0."""
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = serve.init_params(cfg, 0, "cuda")
     torch.cuda.synchronize()
-    say(f"[{cfg.arch}] FULL ({cfg.n_layers} layers, d {cfg.d_model}, "
+    say(f"[{cfg.arch}] FULL width ({cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.dtype}): {api.param_count(params) / 1e9:.3f} B parameters, "
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card, drawn in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -1451,16 +1513,20 @@ PROFILE_SYNC = "--profile-sync"  # the child mode of sync_path's profile
 
 def profile_sync_child() -> None:
     """The child mode: a warm-up relief round of ``train_relief_har``'s run
-    on PAMAP2 B2 FULL, then one more under the profiler (its lines on
-    stdout)."""
+    on PAMAP2 B2 FULL at one local epoch, then one more under the profiler
+    (its lines on stdout)."""
     sys.path.insert(0, str(SRC))
     import torch
     from repro_torch.launch import profile_serve, train_relief_har
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     run, ds = train_relief_har.build(strategy="relief", device="cuda")
+    # one local epoch (4 of a round's 20 steps): the idle share is per step,
+    # and the profiler records and sums a fifth of the events
+    run = type(run).create(run.task, run.proto, run.strategy, run.fleet,
+                           dataclasses.replace(run.fed, local_epochs=1))
     run.round(ds)
-    profile_serve.profile_steps("sync relief round (20 local steps)",
+    profile_serve.profile_steps("sync relief round (1 local epoch: 4 steps)",
                                 lambda: run.round(ds), 1,
                                 torch.device("cuda"))
 
@@ -2180,6 +2246,185 @@ def checkpoint_path(torch, md_ops, train_relief_har, checkpoint) -> int:
                  "as it must")
     return n
 
+# -- phases 27-30 -----------------------------------------------------------
+
+# flash attention at the rest of the zoo's layouts, bf16, at the batched
+# serve's shapes (B=8, P=512, 32 decode steps: a 544-slot ring; llava B=4,
+# 2880 patches + 192 text tokens) and at mixtral's 4096-token window over
+# a ring that has wrapped (5000 positions written)
+ZOO_FA_CASES = [  # label, B, S, T, K, G, hd, filled, window, softcap, bf16?
+    ("mixtral decode", 8, 1, 544, 8, 4, 128, 528, 4096, None, True),
+    ("mixtral decode, wrapped ring", 8, 1, 4096, 8, 4, 128, 5000, 4096,
+     None, True),
+    ("mixtral prefill, wrapped ring", 2, 512, 4096, 8, 4, 128, 5000, 4096,
+     None, True),
+    # MQA: S*G = 48 > DECODE_ROWS, so a decode call takes the prefill path
+    ("granite-34b MQA decode", 8, 1, 544, 1, 48, 128, 528, None, None,
+     True),
+    ("granite-34b MQA prefill", 8, 512, 544, 1, 48, 128, 512, None, None,
+     True),
+    ("musicgen MHA decode", 8, 1, 544, 32, 1, 64, 528, None, None, True),
+    ("musicgen MHA prefill", 8, 512, 544, 32, 1, 64, 512, None, None, True),
+    ("llava prefill", 4, 3072, 3104, 8, 7, 128, 3072, None, None, True),
+    ("llava decode", 4, 1, 3104, 8, 7, 128, 3088, None, None, True),
+]
+# the gathered projection at mixtral's engine shapes (d 4096, 8 KV heads of
+# 128: wo's fusion blocks are the 8 head groups of 512) and granite-34b's
+# MQA wv (F = 128)
+ZOO_MD_CASES = [  # label, B, D, F, A, r, fusion blocks, bf16?
+    ("mixtral wq", 16, 4096, 4096, 16, 8, None, True),
+    ("mixtral wv", 16, 4096, 1024, 16, 8, None, True),
+    ("mixtral wo", 16, 4096, 4096, 16, 8, [512] * 8, True),
+    ("granite-34b wv", 16, 6144, 128, 16, 8, None, True),
+]
+MOE_LAYERS = 20  # of mixtral-8x7b's 32: 58.6 GB of bf16 weights
+LLAVA_SERVE = dict(batch=4, prompt_len=192, decode_steps=32)
+ZOO_SERVE = [  # arch, layers served (None: all), batched shape
+    ("granite-3-8b", None, SERVE),
+    ("musicgen-large", None, SERVE),
+    ("granite-34b", 20, SERVE),
+    ("mixtral-8x22b", 8, SERVE),
+    ("llava-next-34b", 30, LLAVA_SERVE),
+]
+
+
+def zoo_kernels(torch, fa_ops, fa_ref, md_ops, md_ref, counts) -> dict:
+    torch.cuda.empty_cache()
+    return {"flash": check_flash(torch, fa_ops, fa_ref, ZOO_FA_CASES),
+            "mdlora": check_mdlora(torch, md_ops, md_ref, counts,
+                                   ZOO_MD_CASES)}
+
+
+def moe_serve(torch, serve, api, kops, cfg) -> tuple[dict, int]:
+    """mixtral-8x7b at full width, cut in depth: the batched serve (flash
+    attention by path) and the engine (the gathered projection)."""
+    say(f"[moe] {cfg.arch}: {cfg.n_layers} of 32 layers (depth cut: the "
+        "bf16 weights of all 32 are 93.4 GB), widths as published")
+    params = model_params(torch, serve, api, cfg)
+    by_path = serve_batched(torch, serve, kops, cfg, params)
+    md = serve_engine(torch, serve, kops, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return by_path, md
+
+
+def zoo_serve(torch, serve, api, kops, get_arch) -> dict:
+    """``run_batched`` on each of the other new architectures at full
+    width: flash attention's calls by path asserted per arch."""
+    total = {"fp32": 0, "prefill": 0, "decode": 0}
+    for arch, layers, shape in ZOO_SERVE:
+        full = get_arch(arch).FULL
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers,
+                                  attn_impl="pallas")
+        say(f"[zoo] {arch}: {cfg.n_layers} of {full.n_layers} layers"
+            + (" (depth cut)" if layers else "") + ", widths as published")
+        params = model_params(torch, serve, api, cfg)
+        patches = (serve.stub_patches(cfg, shape["batch"], 0, "cuda")
+                   if cfg.family == "vlm" else None)
+        by = serve_batched(torch, serve, kops, cfg, params, shape, patches)
+        for k in total:
+            total[k] += by[k]
+        del params, patches
+        torch.cuda.empty_cache()
+    return total
+
+
+ZOO_NARROW = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=2,
+                  head_dim=64, d_ff=1792, vocab=2048, dtype="float32",
+                  param_dtype="float32", attn_impl="pallas")
+ZOO_CHECKS = [  # arch, fields over ZOO_NARROW
+    ("granite-3-8b", {}),
+    ("granite-34b", dict(n_kv_heads=1)),
+    ("mixtral-8x7b", dict(d_ff=1024)),
+    ("llava-next-34b", dict(n_patches=64)),
+    ("musicgen-large", dict(n_kv_heads=8, vocab=512)),
+]
+MOE_CHECK = dict(batch=4, seq=512, d=1024, f=2048, experts=8, top_k=2)
+
+
+def _moe_layer_check(torch, moe) -> None:
+    """One fp32 MoE layer at a prefill shape where capacity drops occur,
+    card vs CPU from the same weights (TF32 off, phase 1): expert ids, the
+    kept (token, expert) assignments and the output."""
+    c = MOE_CHECK
+    g = torch.Generator().manual_seed(5)
+    p = moe.init_moe_mlp(g, c["d"], c["f"], c["experts"], "cpu")
+    # a shared component skews the routing, so popular experts overflow
+    x = torch.randn((c["batch"], c["seq"], c["d"]), generator=g) \
+        + 0.2 * torch.randn(c["d"], generator=g)
+    cap = moe.capacity(c["seq"], c["top_k"], c["experts"], 1.25)
+    got = {}
+    for where in ("cpu", "cuda"):
+        pw = {k: v.to(where) for k, v in p.items()}
+        _, _, ids = moe.route(pw, x.to(where), c["top_k"])
+        _, rank, slot = moe.dispatch(ids, c["experts"], cap)
+        out, aux = moe.moe_mlp(pw, x.to(where), top_k=c["top_k"])
+        got[where] = (ids.cpu(), slot.cpu(), int((rank >= cap).sum()),
+                      out.cpu(), float(aux))
+    (ic, sc, dc, oc, ac), (ig, sg, dg, og, ag) = got["cpu"], got["cuda"]
+    flips = int((ic != ig).any(-1).sum())
+    err = (og - oc).abs().max().item()
+    n = c["batch"] * c["seq"] * c["top_k"]
+    say(f"[zoo check] one MoE layer (d {c['d']}, f {c['f']}, "
+        f"{c['experts']} experts, top-{c['top_k']}, capacity {cap} per "
+        f"sequence and expert) at B={c['batch']} S={c['seq']}, fp32: "
+        f"{flips} of {c['batch'] * c['seq']} tokens routed differently on "
+        f"the card than on the CPU; dropped assignments {dg} (card) / {dc} "
+        f"(CPU) of {n}; kept set equal: {torch.equal(sc, sg)}; output max "
+        f"abs err {err:.2e} (atol {CHECK_ATOL}); aux {ag:.6f} / {ac:.6f}")
+    if dc == 0:
+        fail("zoo check: the MoE layer dropped nothing; the check needs "
+             "capacity drops")
+    if flips or not torch.equal(sc, sg) or err > CHECK_ATOL:
+        fail("zoo check: the MoE layer routes or computes differently on "
+             "the card")
+
+
+def zoo_check(torch, serve, api, kops, tree_map, moe, get_arch) -> None:
+    """A float32 two-layer model of each new family at a narrow width, on
+    the card against the same model on the CPU: batched tokens and prefill
+    logits, mixtral's engine tokens; then one MoE layer."""
+    bkw = dict(batch=4, prompt_len=40, decode_steps=8, seed=1)
+    ekw = dict(n_adapters=4, batch=4, n_requests=10, prompt_len=40,
+               min_prompt_len=8, decode_steps=8, seed=1)
+    for arch, extra in ZOO_CHECKS:
+        cfg = dataclasses.replace(get_arch(arch).FULL, arch=f"{arch}-check",
+                                  **{**ZOO_NARROW, **extra})
+        cpu = api.init_model(torch.Generator().manual_seed(3), cfg, "cpu")
+        gpu = tree_map(lambda t: t.to("cuda"), cpu)
+        pc = (serve.stub_patches(cfg, bkw["batch"], 1, "cpu")
+              if cfg.family == "vlm" else None)
+        _reset_all(kops)
+        bg = serve.run_batched(cfg, gpu, device="cuda", **bkw,
+                               patches=None if pc is None else pc.cuda())
+        engine = cfg.family == "moe"
+        if engine:
+            eg = serve.run_engine(cfg, gpu, device="cuda", **ekw)
+        n = _counts(kops)
+        bc = serve.run_batched(cfg, cpu, device="cpu", patches=pc, **bkw)
+        err = (bg["prefill_logits"] - bc["prefill_logits"]).abs().max()
+        same = bool((bg["tokens"] == bc["tokens"]).all())
+        line = (f"[zoo check] {cfg.arch} fp32 (2 layers, d 512, "
+                f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV): batched "
+                f"prefill logits {tuple(bg['prefill_logits'].shape)} card vs "
+                f"CPU max abs err {err.item():.2e} (atol {CHECK_ATOL}), "
+                f"tokens {bg['tokens'].shape} equal: {same}")
+        if engine:
+            ec = serve.run_engine(cfg, cpu, device="cpu", **ekw)
+            line += (f"; engine tokens card == CPU: "
+                     f"{eg['outputs'] == ec['outputs']} "
+                     f"({eg['generated_tokens']} tokens)")
+        say(line + f"; card launches flash {n['flash_attention']}, mdlora "
+            f"{n['mdlora_matmul_multi']}")
+        if n["flash_attention"] == 0 or (engine and
+                                         n["mdlora_matmul_multi"] == 0):
+            fail(f"zoo check {arch}: the card runs did not go through the "
+                 "kernels")
+        if err > CHECK_ATOL or not same or (
+                engine and eg["outputs"] != ec["outputs"]):
+            fail(f"zoo check {arch}: the card differs from the CPU")
+    _moe_layer_check(torch, moe)
+
 
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
@@ -2202,7 +2447,7 @@ def main() -> None:
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.launch import (serve, serving_engine, step_fns,
                                     train_async_har, train_relief_har)
-    from repro_torch.models import api, ssm
+    from repro_torch.models import api, moe, ssm
     from repro_torch.tree import tree_map
 
     def phase(name, fn, *args):
@@ -2235,19 +2480,9 @@ def main() -> None:
     results["mdlora_matmul_multi"] = md_res["wq"]
     full = dataclasses.replace(get_arch("phi3-medium-14b").FULL,
                                attn_impl="pallas")
-    t0 = time.perf_counter()
-    params = serve.init_params(full, 0, "cuda")
-    torch.cuda.synchronize()
-    say(f"[serve] {full.arch} FULL: {api.param_count(params) / 1e9:.2f} B "
-        f"parameters, {torch.cuda.memory_allocated() / 1e9:.1f} GB on the "
-        f"card, drawn in {time.perf_counter() - t0:.1f}s")
-    calls = phase("serve", serve_batched, torch, serve, kops, full, params)
-    by_path = dict(fa_ops.PATH_LAUNCHES)  # read before the engine resets it
-    say(f"[serve] flash_attention calls by path: {by_path} (expected "
-        f"prefill {full.n_layers}, decode {calls - full.n_layers})")
-    if by_path["prefill"] != full.n_layers or \
-            by_path["decode"] != calls - full.n_layers:
-        fail("batched serve did not take the prefill and decode paths")
+    params = model_params(torch, serve, api, full)
+    by_path = phase("serve", serve_batched, torch, serve, kops, full,
+                    params)
     launches["flash_attention"] = by_path["decode"]
     launches["flash_attention_prefill"] = by_path["prefill"]
     launches["mdlora_matmul_multi"] = phase(
@@ -2261,7 +2496,7 @@ def main() -> None:
     launches["ssd"] = 0
     for arch in ("mamba2-1.3b", "hymba-1.5b"):
         cfg = dataclasses.replace(get_arch(arch).FULL, attn_impl="pallas")
-        params = recurrent_params(torch, serve, api, cfg)
+        params = model_params(torch, serve, api, cfg)
         launches["ssd"] += phase(f"{arch} prefill step", prefill_step, torch,
                                  step_fns, kops, cfg, params)
         if arch == "mamba2-1.3b":
@@ -2314,6 +2549,19 @@ def main() -> None:
                                        ops, md_ops, experiments)
     launches["mdlora_matmul"] += phase("checkpoint", checkpoint_path, torch,
                                        md_ops, train_relief_har, checkpoint)
+    phase("zoo kernels", zoo_kernels, torch, fa_ops, fa_ref, md_ops, md_ref,
+          counts)
+    mixtral = dataclasses.replace(get_arch("mixtral-8x7b").FULL,
+                                  n_layers=MOE_LAYERS, attn_impl="pallas")
+    by_path, md = phase("moe serve", moe_serve, torch, serve, api, kops,
+                        mixtral)
+    zoo = phase("zoo serve", zoo_serve, torch, serve, api, kops, get_arch)
+    launches["flash_attention"] += by_path["decode"] + zoo["decode"]
+    launches["flash_attention_prefill"] += by_path["prefill"] \
+        + zoo["prefill"]
+    launches["mdlora_matmul_multi"] += md
+    phase("zoo check", zoo_check, torch, serve, api, kops, tree_map, moe,
+          get_arch)
     lines = []
     for name, replaces in KERNELS.items():
         lines.append(dict(

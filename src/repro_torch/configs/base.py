@@ -1,15 +1,16 @@
-"""Config dataclass + the registry of the ported architectures.
+"""Config dataclass + the registry of the architectures.
 
 ``ModelConfig`` keeps every field of ``repro/configs/base.py`` with the same
 defaults, so a reference config converts field by field; ``runtime_dtype``
 and ``p_dtype`` return torch dtypes. Each architecture file exports
 
-  FULL   the published configuration (phi3-medium-14b, mamba2-1.3b and
-         hymba-1.5b serve at full width and depth on one H100)
+  FULL   the published configuration (served at full width on one H100; a
+         model whose bf16 weights exceed the card runs there cut in depth)
   SMOKE  a reduced same-family configuration (CPU tests)
 
-Only the ported architectures register. The reference's ``input_specs`` /
-``ShapeConfig`` belong to the dry-run, which is not ported.
+All ten of the reference's LM architectures register. The reference's
+``input_specs`` / ``ShapeConfig`` belong to the dry-run, which is not
+ported.
 """
 from __future__ import annotations
 
@@ -92,7 +93,9 @@ class ModelConfig:
 
 
 _REGISTRY: dict[str, ModuleType] = {}
-_PORTED = ("phi3_medium_14b", "gemma2_27b", "mamba2_1_3b", "hymba_1_5b")
+_PORTED = ("phi3_medium_14b", "gemma2_27b", "granite_34b", "granite_3_8b",
+           "llava_next_34b", "musicgen_large", "mixtral_8x7b",
+           "mixtral_8x22b", "mamba2_1_3b", "hymba_1_5b")
 
 
 def register(arch_id: str, module: ModuleType) -> None:

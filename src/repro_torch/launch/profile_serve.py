@@ -10,7 +10,8 @@ profiles ``steps`` lockstep decode steps (flash attention); the engine
 admits one request per slot into 16 slots (prompts of up to half as many
 tokens, 16 adapters, each with its own modality mask) and profiles
 ``steps`` engine steps with every slot busy (the gathered projection;
-mamba2 has no fusion projection, so no engine). The recurrent families
+mamba2 has no fusion projection and musicgen's prompts carry codebooks,
+which the engine does not take, so neither has an engine). The recurrent families
 prefill by the token loop of decode steps. For each it prints the host
 wall per step (after a synchronize, profiler on), the card's busy time per
 step (the sum of its kernel, copy and memset times: one stream, so they do
@@ -86,8 +87,9 @@ def profile_steps(label: str, step, n: int, dev: torch.device) -> dict:
 def profile_batched(cfg: ModelConfig, params: dict, *, batch: int,
                     prompt_len: int, steps: int, dev: torch.device) -> dict:
     caches = api.init_caches(cfg, batch, prompt_len + steps + 1, device=dev)
-    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
-                            dtype=torch.int32,
+    shape = (batch, prompt_len) + ((cfg.n_codebooks,) if cfg.n_codebooks
+                                   else ())
+    prompts = torch.randint(0, cfg.vocab, shape, dtype=torch.int32,
                             generator=torch.Generator().manual_seed(0))
     logits, caches = api.prefill_with_cache(params, cfg, caches,
                                             prompts.to(dev))
@@ -140,7 +142,7 @@ def main(argv: list[str] | None = None) -> dict:
     res = {"batched": profile_batched(cfg, params, batch=BATCH,
                                       prompt_len=args.prompt_len,
                                       steps=args.steps, dev=dev)}
-    if cfg.family != "ssm":
+    if cfg.family != "ssm" and not cfg.n_codebooks:
         res["engine"] = profile_engine(cfg, params, slots=SLOTS,
                                        n_adapters=N_ADAPTERS,
                                        prompt_len=args.prompt_len // 2,

@@ -3,17 +3,26 @@ continuous-batching multi-LoRA engine, for a ported LM architecture.
 
   python -m repro_torch.launch.serve --arch phi3-medium-14b [--smoke]
       [--engine] [--device cuda|cpu] [--attn-impl pallas|xla]
-  python -m repro_torch.launch.serve --arch mamba2-1.3b | hymba-1.5b ...
+  python -m repro_torch.launch.serve --arch ARCH ...   (any of the ten:
+      phi3-medium-14b, gemma2-27b, granite-3-8b, granite-34b, mixtral-8x7b,
+      mixtral-8x22b, llava-next-34b, musicgen-large, mamba2-1.3b,
+      hymba-1.5b)
 
 ``run_batched`` prefills B synthetic prompts through
 ``api.prefill_with_cache`` (one chunked forward for the attention families;
 the exact token loop of decode steps for mamba2 and hymba, as the reference
 does) and decodes them in lockstep, every row at the same position. The SSD
 kernel runs in the full-prompt forward, ``step_fns.make_prefill_step``.
+musicgen's prompts and tokens carry a codebook axis ([B, P, n_codebooks]);
+for llava the CLI draws stub patch embeddings [B, n_patches, d_model] from
+the seed on the device (``stub_patches``, the frontend the config
+describes), which ``run_batched`` prepends to every prompt.
 ``run_engine`` serves N personalized adapters through
 ``launch/serving_engine.py``: requests with ragged prompts join and leave
 the decode batch mid-stream, each row decoding with its own adapter and
-modality mask through the gathered projection.
+modality mask through the gathered projection. llava's requests are text
+only, and musicgen has no engine: the reference's engine takes no codebook
+prompts, and this one raises on a codebook config.
 
 In the port, ``attn_impl="pallas"`` and ``lora_impl="pallas"`` mean "the op
 in ``kernels/``": on a CUDA tensor it launches the CUDA kernel
@@ -69,20 +78,35 @@ def init_params(cfg: ModelConfig, seed: int,
                           dev)
 
 
+def stub_patches(cfg: ModelConfig, batch: int, seed: int,
+                 device: torch.device | str | None = None) -> torch.Tensor:
+    """llava's stub vision frontend: patch embeddings [batch, n_patches,
+    d_model] ~ N(0, 1) in the runtime dtype, drawn on ``device`` from
+    ``seed``."""
+    dev = runtime.resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((batch, cfg.n_patches, cfg.d_model), generator=g,
+                       device=dev).to(cfg.runtime_dtype())
+
+
 def run_batched(cfg: ModelConfig, params: dict | None = None, *,
                 batch: int = 4, prompt_len: int = 64, decode_steps: int = 32,
-                seed: int = 0, device: torch.device | str | None = None
-                ) -> dict:
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
-    ``decode_steps`` greedy decode steps. -> tokens [B, decode_steps]
-    (numpy), the prefill's last-position logits [B, V] (fp32, on the host)
-    and host wall times taken after a device synchronize."""
+                seed: int = 0, device: torch.device | str | None = None,
+                patches: torch.Tensor | None = None) -> dict:
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (after
+    ``patches`` [B, n_patches, d_model], if given), then ``decode_steps``
+    greedy decode steps. -> tokens [B, decode_steps] (audio [B,
+    decode_steps, n_codebooks]; numpy), the prompts, the prefill's
+    last-position logits [B, V] (audio [B, n_codebooks, V]; fp32, on the
+    host) and host wall times taken after a device synchronize."""
     dev = runtime.resolve_device(device)
     if params is None:
         params = init_params(cfg, seed, dev)
     B, P = batch, prompt_len
-    max_len = P + decode_steps
-    prompts = torch.randint(0, cfg.vocab, (B, P), dtype=torch.int32,
+    n_pre = 0 if patches is None else patches.shape[1]
+    max_len = n_pre + P + decode_steps
+    shape = (B, P, cfg.n_codebooks) if cfg.n_codebooks else (B, P)
+    prompts = torch.randint(0, cfg.vocab, shape, dtype=torch.int32,
                             generator=torch.Generator().manual_seed(seed))
     serve_step = SF.make_serve_step(cfg)
     caches = api.init_caches(cfg, B, max_len, device=dev)
@@ -90,21 +114,22 @@ def run_batched(cfg: ModelConfig, params: dict | None = None, *,
     _sync(dev)
     t0 = time.perf_counter()
     logits, caches = api.prefill_with_cache(params, cfg, caches,
-                                            prompts.to(dev))
-    tok = logits.argmax(-1).to(torch.int32)
+                                            prompts.to(dev), patches=patches)
+    tok = logits.argmax(-1).to(torch.int32)  # [B, 1] (audio [B, 1, CB])
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
     out = []
     t0 = time.perf_counter()
-    for pos in range(P, max_len):
+    for pos in range(n_pre + P, max_len):
         tok, caches = serve_step(params, caches, tok, pos)
         out.append(tok)
     gen = torch.cat(out, dim=1).cpu().numpy()  # waits for the last step
     t_decode = time.perf_counter() - t0
     if not ((gen >= 0).all() and (gen < cfg.vocab).all()):
         raise ValueError(f"decoded token ids outside [0, {cfg.vocab})")
-    return {"tokens": gen, "prefill_logits": logits[:, 0].float().cpu(),
+    return {"tokens": gen, "prompts": prompts.numpy(),
+            "prefill_logits": logits[:, 0].float().cpu(),
             "prefill_s": t_prefill, "decode_s": t_decode,
             "decode_ms_per_step": t_decode / decode_steps * 1e3,
             "tok_s": decode_steps * B / max(t_decode, 1e-9)}
@@ -207,14 +232,18 @@ def main(argv: list[str] | None = None) -> dict:
         print("[serve/engine] sample:", next(iter(res["outputs"].values()))
               [:16])
         return res
+    patches = None
+    if cfg.family == "vlm":
+        patches = stub_patches(cfg, args.batch, args.seed, args.device)
     res = run_batched(cfg, batch=args.batch, prompt_len=args.prompt_len,
                       decode_steps=args.decode_steps, seed=args.seed,
-                      device=args.device)
-    print(f"[serve] {args.arch} on {args.device}: prefill {args.batch}x"
-          f"{args.prompt_len} tokens in {res['prefill_s']:.2f}s; decoded "
+                      device=args.device, patches=patches)
+    pre = "" if patches is None else f"{cfg.n_patches} patches + "
+    print(f"[serve] {args.arch} on {args.device}: prefill {args.batch}x("
+          f"{pre}{args.prompt_len} tokens) in {res['prefill_s']:.2f}s; decoded "
           f"{args.decode_steps}x{args.batch} in {res['decode_s']:.2f}s "
           f"({res['tok_s']:.1f} tok/s)")
-    print("[serve] sample:", res["tokens"][0, :16].tolist())
+    print("[serve] sample:", res["tokens"][0].reshape(-1)[:16].tolist())
     return res
 
 

@@ -17,7 +17,10 @@ engine instead:
   ``adapter_idx`` picks its adapter inside the kernel and per-row fusion
   masks zero absent-modality blocks.
 
-``naive_serve`` is the baseline: sequential per-request decode with the
+A request's prompt is [P] text tokens: a vlm request is text only (no
+patches), and a codebook config (musicgen) raises, as the reference's
+engine cannot take its [P, n_codebooks] prompts. ``naive_serve`` is the
+baseline: sequential per-request decode with the
 request's single adapter. The engine's attention takes per-row positions,
 so it runs the plain chunked attention, as the reference's does.
 """
@@ -153,6 +156,11 @@ class ServingEngine:
     def __init__(self, params: dict, cfg: ModelConfig,
                  registry: AdapterRegistry, batch_slots: int, max_len: int,
                  lora_impl: str = "xla"):
+        if cfg.n_codebooks:
+            raise ValueError(
+                f"{cfg.arch}: the serving engine takes no codebook prompts "
+                "([S, n_codebooks]), as the reference's engine takes none; "
+                "serve it with serve.run_batched")
         self.cfg = cfg
         self.registry = registry
         self.device = registry.device

@@ -7,10 +7,10 @@
   prefill_with_cache(params, cfg, caches, tokens) -> (last logits, caches)
   lora_shapes(cfg), init_lora(generator, cfg, device) -> the LoRA targets
 
-The transformer families dispatch to ``models/transformer.py`` (the dense
-family is ported; MoE, VLM and audio raise there), ``ssm`` to
-``models/ssm.py`` (mamba2) and ``hybrid`` to ``models/hybrid.py`` (hymba).
-Caches are written in place and returned.
+The transformer families (dense, moe, vlm, audio) dispatch to
+``models/transformer.py``, ``ssm`` to ``models/ssm.py`` (mamba2) and
+``hybrid`` to ``models/hybrid.py`` (hymba). Caches are written in place and
+returned.
 """
 from __future__ import annotations
 
@@ -141,18 +141,23 @@ def prefill_with_cache(params: dict, cfg: ModelConfig, caches: Any,
                        tokens: torch.Tensor,
                        patches: torch.Tensor | None = None,
                        fusion_mask: torch.Tensor | None = None) -> tuple:
-    """Prefill ``tokens`` [B, S] into fresh ``caches`` (written in place);
-    -> (last-position logits [B, 1, V], caches).
+    """Prefill ``tokens`` [B, S] (audio [B, S, n_codebooks]) into fresh
+    ``caches`` (written in place); -> (last-position logits [B, 1, V]
+    (audio [B, 1, n_codebooks, V]), caches).
 
     Attention families run one chunked forward over the whole prompt when
-    every cache ring holds it; a prompt longer than a sliding-window ring
-    would overwrite slots mid-forward, so it takes the exact per-token loop.
-    The recurrent families (ssm, hybrid) advance their state token by token,
-    as the reference does: the cache path is the recurrence there. The
-    fusion mask applies to hybrid only.
+    every cache ring holds it; ``patches`` [B, n_patches, d_model] (vlm)
+    come first, so the prompt's positions and the ring check count
+    n_patches + S. (The reference counts S only and fails on patches,
+    ROADMAP.md section 3.) A prompt longer than a sliding-window ring would
+    overwrite slots mid-forward, so it takes the exact per-token loop, which
+    takes no patches: it raises when given them. The recurrent families
+    (ssm, hybrid) advance their state token by token, as the reference
+    does: the cache path is the recurrence there. The fusion mask applies
+    to the attention families and hybrid.
     """
     family = _family(cfg)
-    S = tokens.shape[1]
+    S = tokens.shape[1] + (0 if patches is None else patches.shape[1])
     if family in _TF_FAMILIES and S <= _min_ring(caches):
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         h, caches, _ = TF.lm_forward(params, cfg, tokens, patches=patches,
@@ -160,6 +165,11 @@ def prefill_with_cache(params: dict, cfg: ModelConfig, caches: Any,
                                      skip_unembed=True,
                                      fusion_mask=fusion_mask)
         return TF.unembed(params, cfg, h[:, -1:]), caches
+    if patches is not None:
+        raise ValueError(
+            f"the per-token prefill takes no patches ({family} family, "
+            f"{S} positions with the patches): the one-forward prefill "
+            "needs every cache ring to hold the whole prompt")
     if family == "ssm":
         fusion_mask = None
     logits = None

@@ -1,10 +1,14 @@
-"""Decoder-only transformer LM, dense family (phi3-medium, gemma2).
+"""Decoder-only transformer LM (dense / MoE / VLM / audio variants).
 
-One config-driven implementation of ``repro/models/transformer.py``'s dense
-path: GQA attention with RoPE, an optional sliding window, gemma-2's
+One config-driven implementation of ``repro/models/transformer.py``: GQA
+(or MQA, MHA) attention with RoPE, an optional sliding window, gemma-2's
 alternating local/global pattern, softcaps, post-norms and query scale, a
-GLU MLP, and the serving hooks (LoRA, the gathered multi-adapter decode,
-RELIEF fusion masks, ring KV caches with an optional int8 store).
+GLU MLP or mixtral's sparse MoE MLP (``models/moe.py``, whose load-balancing
+aux loss ``lm_forward`` sums over the layers), llava's patch embeddings
+prepended to the token stream, musicgen's parallel codebook streams
+(summed embeddings, [.., n_codebooks, vocab] logits), and the serving hooks
+(LoRA, the gathered multi-adapter decode, RELIEF fusion masks, ring KV
+caches with an optional int8 store).
 
 Parameters keep the reference's tree (``{"base": ..., "lora": ...}``) with
 layers stacked ``[L, ...]``; a Python loop over layers takes the place of
@@ -13,9 +17,6 @@ layers stacked ``[L, ...]``; a Python loop over layers takes the place of
 ported (the config fields stay). KV caches are updated in place: a forward
 or decode step with caches writes the new entries into the given tensors
 and returns the same tree. A caller that reuses a fresh cache must clone it.
-
-The MoE, VLM and audio variants raise ``NotImplementedError`` (ROADMAP.md,
-port queue: "MoE/VLM/audio variants").
 """
 from __future__ import annotations
 
@@ -31,16 +32,10 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.mdlora import ops as md_ops
 from repro_torch.kernels.mdlora import ref as md_ref
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.tree import tree_map
 
 GLOBAL_WINDOW = L.GLOBAL_WINDOW
-_NOT_PORTED = ("the {} variant of the transformer is not ported yet "
-               "(ROADMAP.md, port queue: MoE/VLM/audio variants)")
-
-
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_codebooks or cfg.n_experts:
-        raise NotImplementedError(_NOT_PORTED.format(cfg.family))
 
 
 def pattern(cfg: ModelConfig) -> tuple[int, tuple[int, ...]]:
@@ -107,15 +102,18 @@ def init_lm(generator: torch.Generator | None, cfg: ModelConfig,
     the generator's device and move to ``device``: a CUDA generator draws a
     full-width model on the card in seconds; a CPU generator gives the same
     weights on every device."""
-    _dense_only(cfg)
     dev = runtime.resolve_device(device)
     dt, d, n = cfg.p_dtype(), cfg.d_model, cfg.n_layers
     layers: dict[str, Any] = {
         "attn": L.init_attention(generator, attn_dims(cfg), dev, dt, n),
         "ln1": torch.zeros((n, d), dtype=dt, device=dev),
         "ln2": torch.zeros((n, d), dtype=dt, device=dev),
-        "mlp": L.init_glu_mlp(generator, d, cfg.d_ff, dev, dt, n),
     }
+    if cfg.family == "moe":
+        layers["mlp"] = MOE.init_moe_mlp(generator, d, cfg.d_ff,
+                                         cfg.n_experts, dev, dt, n)
+    else:
+        layers["mlp"] = L.init_glu_mlp(generator, d, cfg.d_ff, dev, dt, n)
     if cfg.post_norms:  # gemma-2 post-attention / post-ffw norms
         layers["ln1b"] = torch.zeros((n, d), dtype=dt, device=dev)
         layers["ln2b"] = torch.zeros((n, d), dtype=dt, device=dev)
@@ -281,10 +279,16 @@ def _sublayer(p: dict, lp: dict | None, cfg: ModelConfig, x: torch.Tensor,
         attn_out = L.rmsnorm(p["ln1b"], attn_out)
     x = x + attn_out
     h = L.rmsnorm(p["ln2"], x)
-    mlp_out = L.glu_mlp(p["mlp"], h, cfg.activation)
+    if cfg.family == "moe":
+        mlp_out, aux = MOE.moe_mlp(p["mlp"], h, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor,
+                                   activation=cfg.activation,
+                                   impl=cfg.moe_impl)
+    else:
+        mlp_out, aux = L.glu_mlp(p["mlp"], h, cfg.activation), 0.0
     if cfg.post_norms:
         mlp_out = L.rmsnorm(p["ln2b"], mlp_out)
-    return x + mlp_out, new_cache, 0.0
+    return x + mlp_out, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -294,11 +298,20 @@ def _sublayer(p: dict, lp: dict | None, cfg: ModelConfig, x: torch.Tensor,
 
 def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  patches: torch.Tensor | None = None) -> torch.Tensor:
-    _dense_only(cfg)
+    """tokens [B, S] (audio: [B, S, n_codebooks], the codebooks' embedding
+    streams summed); ``patches`` [B, n_patches, d_model] (llava's stub
+    frontend) come first -> [B, (n_patches +) S, d_model]."""
+    emb = params["base"]["embed"]
+    if cfg.n_codebooks:  # codebook i's ids index rows i*vocab + id
+        offs = torch.arange(cfg.n_codebooks, dtype=tokens.dtype,
+                            device=tokens.device) * cfg.vocab
+        x = F.embedding(tokens + offs, emb).sum(2)
+    else:
+        x = F.embedding(tokens, emb)
+    x = x.to(cfg.runtime_dtype())
     if patches is not None:
-        raise NotImplementedError(_NOT_PORTED.format("vlm"))
-    return F.embedding(tokens, params["base"]["embed"]).to(
-        cfg.runtime_dtype())
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -307,9 +320,14 @@ def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
         logits = h @ base["embed"].T.to(h.dtype)
     else:
         logits = h @ base["lm_head"]
-    if logits.shape[-1] != cfg.vocab:  # drop vocab-padding columns
-        logits = logits[..., :cfg.vocab]
-    return L.softcap(logits, cfg.final_softcap)
+    v = cfg.vocab * max(cfg.n_codebooks, 1)
+    if logits.shape[-1] != v:  # drop vocab-padding columns
+        logits = logits[..., :v]
+    logits = L.softcap(logits, cfg.final_softcap)
+    if cfg.n_codebooks:
+        logits = logits.reshape(*logits.shape[:-1], cfg.n_codebooks,
+                                cfg.vocab)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -332,15 +350,19 @@ def _layer_cache(caches: Any, layer: int, n_sub: int) -> dict | None:
 
 def _layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
             positions: torch.Tensor, caches: Any, ctx: dict | None
-            ) -> torch.Tensor:
+            ) -> tuple:
+    """-> (final-norm hidden, the MoE aux loss summed over the layers; 0.0
+    for the other families)."""
     n_sub, windows = pattern(cfg)
     base = params["base"]["layers"]
     lora = params.get("lora", {}).get("layers")
+    aux = 0.0
     for layer in range(cfg.n_layers):
-        x, _, _ = _sublayer(_at(base, layer), _at(lora, layer), cfg, x,
+        x, _, a = _sublayer(_at(base, layer), _at(lora, layer), cfg, x,
                             positions, _layer_cache(caches, layer, n_sub),
                             windows[layer % n_sub], ctx)
-    return L.rmsnorm(params["base"]["final_norm"], x)
+        aux = aux + a
+    return L.rmsnorm(params["base"]["final_norm"], x), aux
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -348,22 +370,24 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                positions: torch.Tensor | None = None,
                caches: Any = None, skip_unembed: bool = False,
                fusion_mask: torch.Tensor | None = None) -> tuple:
-    """-> (logits | final hidden, caches | None, aux loss 0.0).
+    """-> (logits | final hidden, caches | None, MoE aux loss).
 
-    ``caches`` are written in place and returned. ``fusion_mask``
-    [B, n_heads*head_dim] zeroes absent-modality blocks of the fusion
-    (``wo``) projection input, so a masked prefill and decode see the same
-    features.
+    tokens [B, S] (audio [B, S, n_codebooks]); ``patches`` [B, n_patches,
+    d_model] are prepended, and ``positions`` (default arange) cover
+    n_patches + S. ``caches`` are written in place and returned.
+    ``fusion_mask`` [B, n_heads*head_dim] zeroes absent-modality blocks of
+    the fusion (``wo``) projection input, so a masked prefill and decode
+    see the same features.
     """
     x = embed_tokens(params, cfg, tokens, patches)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
     ctx = None if fusion_mask is None else {"fusion_mask": fusion_mask}
-    x = _layers(params, cfg, x, positions, caches, ctx)
+    x, aux = _layers(params, cfg, x, positions, caches, ctx)
     if skip_unembed:
-        return x, caches, 0.0
-    return unembed(params, cfg, x), caches, 0.0
+        return x, caches, aux
+    return unembed(params, cfg, x), caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +413,6 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
     ([.., B, T]) so each row can sit at its own depth -- the serving
     engine's layout. ``cfg.kv_quant`` stores int8 codes and fp32 scales.
     """
-    _dense_only(cfg)
     dev = runtime.resolve_device(device)
     dtype = dtype or cfg.runtime_dtype()
     n_sub, _ = pattern(cfg)
@@ -419,7 +442,7 @@ def lm_decode_step(params: dict, cfg: ModelConfig, caches: Any,
                    lora_impl: str = "xla") -> tuple:
     """One-token decode; the caches are written in place and returned.
 
-    token [B, 1]; pos a scalar (every row at the same depth) or [B] int32
+    token [B, 1] (audio [B, 1, n_codebooks]); pos a scalar (every row at the same depth) or [B] int32
     (per-row depths, continuous batching: caches built with
     ``per_row_pos=True``). ``adapter_idx`` [B] selects each row's adapter
     from [A, ...]-stacked LoRA leaves (gathered multi-tenant decode);
@@ -433,5 +456,5 @@ def lm_decode_step(params: dict, cfg: ModelConfig, caches: Any,
     if adapter_idx is not None or fusion_mask is not None:
         ctx = {"adapter_idx": adapter_idx, "fusion_mask": fusion_mask,
                "lora_impl": lora_impl}
-    x = _layers(params, cfg, x, positions, caches, ctx)
+    x, _ = _layers(params, cfg, x, positions, caches, ctx)
     return unembed(params, cfg, x), caches

@@ -1166,3 +1166,106 @@ def test_motivation_on_card_matches_cpu(dev):
                                    rtol=1e-3)
     np.testing.assert_allclose(c["obs2_rare_to_common_ratio"],
                                p["obs2_rare_to_common_ratio"], rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model zoo: kernels 5 and 4 at its shapes, one MoE layer
+# ---------------------------------------------------------------------------
+
+
+def _wrapped_ring(T, last):
+    """kv positions of a ring of T slots that has wrapped: positions
+    last-T+1..last, each at slot pos % T."""
+    pos = np.arange(last - T + 1, last + 1)
+    kv = np.empty(T, np.int32)
+    kv[pos % T] = pos
+    return kv
+
+
+ZOO_FA_CASES = [  # label, B, S, T, K, G, hd, window, wrapped?
+    ("mixtral decode, wrapped ring", 2, 1, 4096, 8, 4, 128, 4096, True),
+    ("mixtral prefill, wrapped ring", 1, 64, 4096, 8, 4, 128, 4096, True),
+    ("granite-34b MQA decode", 2, 1, 300, 1, 48, 128, None, False),
+    ("musicgen MHA decode", 2, 1, 300, 32, 1, 64, None, False),
+    ("musicgen MHA prefill", 2, 64, 300, 32, 1, 64, None, False),
+    ("llava G=7 prefill", 1, 200, 256, 8, 7, 128, None, False),
+]
+
+
+@pytest.mark.parametrize("label,B,S,T,K,G,hd,window,wrapped", ZOO_FA_CASES,
+                         ids=[c[0] for c in ZOO_FA_CASES])
+def test_flash_bf16_kernel_at_the_zoo_layouts(dev, label, B, S, T, K, G, hd,
+                                              window, wrapped):
+    """bf16 at mixtral's 4096 window over a wrapped ring, granite-34b's MQA
+    (S*G = 48 > DECODE_ROWS: a decode call takes the prefill path),
+    musicgen's MHA (hd 64) and llava's G = 7; each call takes the path its
+    S*G selects."""
+    q, k, v, qp, kp = _fa_inputs(B, S, T, K, G, hd, torch.bfloat16, dev,
+                                 B + S + T + G)
+    if wrapped:
+        kv = _wrapped_ring(T, 5000)
+        kp = torch.as_tensor(kv, device=dev)
+        qp = torch.arange(5001 - S, 5001, dtype=torch.int32, device=dev)
+    path = "decode" if S * G <= fa_ops.DECODE_ROWS else "prefill"
+    assert (label.startswith("granite") and path == "prefill") or \
+        not label.startswith("granite")
+    before = dict(fa_ops.PATH_LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, qp, kp, window, None)
+    torch.cuda.synchronize()
+    assert fa_ops.PATH_LAUNCHES[path] == before[path] + 1
+    want = fa_ref.flash_attention_ref(q, k, v, qp, kp, window, None)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FA_ATOL[torch.bfloat16], rtol=0)
+
+
+ZOO_MD_CASES = [  # label, D, F, blocks (None: no mask)
+    ("mixtral wq", 4096, 4096, None),
+    ("mixtral wv", 4096, 1024, None),
+    ("mixtral wo", 4096, 4096, [512] * 8),
+    ("granite-34b wv", 6144, 128, None),
+]
+
+
+@pytest.mark.parametrize("label,D,F,blocks", ZOO_MD_CASES,
+                         ids=[c[0] for c in ZOO_MD_CASES])
+def test_mdlora_bf16_kernel_at_the_zoo_shapes(dev, label, D, F, blocks):
+    x, w0, a, b, idx, mask = _md_inputs(16, D, F, 8, 16, torch.bfloat16,
+                                        dev, D + F, dims=blocks or [D])
+    mask = mask if blocks else None
+    before = md_ops.LAUNCHES["mdlora_matmul_multi"]
+    got = md_ops.mdlora_matmul_multi(x, w0, a, b, idx, mask, 2.0)
+    torch.cuda.synchronize()
+    assert md_ops.LAUNCHES["mdlora_matmul_multi"] == before + 1
+    want = md_ref.mdlora_matmul_multi_ref(x, w0, a, b, idx, mask, 2.0)
+    atol, rtol = MD_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_moe_layer_on_card_matches_cpu(dev):
+    """One fp32 MoE layer (8 experts, top-2) at a prefill shape where
+    capacity drops occur, on the card against the CPU from the same
+    weights, TF32 off: the same expert ids, the same kept (token, expert)
+    assignments, the output to atol 1e-4."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(0)
+    p = moe.init_moe_mlp(g, 256, 512, 8, "cpu")
+    # a shared component skews the routing: 59 of 1024 assignments drop
+    x = torch.randn((4, 128, 256), generator=g) \
+        + 0.2 * torch.randn(256, generator=g)
+    cap = moe.capacity(128, 2, 8, 1.25)
+    got = {}
+    for where in ("cpu", dev):
+        pw = {k: v.to(where) for k, v in p.items()}
+        xw = x.to(where)
+        _, _, ids = moe.route(pw, xw, 2)
+        _, rank, slot = moe.dispatch(ids, 8, cap)
+        out, aux = moe.moe_mlp(pw, xw, top_k=2)
+        got[str(where)] = (ids.cpu(), slot.cpu(), (rank >= cap).sum().item(),
+                           out.cpu(), float(aux))
+    c, d = got["cpu"], got[str(dev)]
+    assert c[2] > 0  # some assignments are dropped
+    assert torch.equal(c[0], d[0]) and torch.equal(c[1], d[1])
+    torch.testing.assert_close(d[3], c[3], atol=1e-4, rtol=0)
+    assert abs(c[4] - d[4]) <= 1e-5
