@@ -180,6 +180,33 @@ Phases, each printing its lines (and its wall time) before the last:
               tokens; one fp32 MoE layer at a prefill shape with capacity
               drops: routings that differ (asserted 0), the kept (token,
               expert) set and the output
+ 31. lora train  ``launch/train.py``'s backbone mode on phi3-medium-14b FULL
+              (40 layers, bf16, random weights drawn on the card) at the
+              reference's defaults: LoRA, B=8, S=128, lr 1e-3, the config's
+              remat "dots", 8 steps: the loss of every step, ms per step
+              (step 1 apart), tokens/s, peak memory, the reference's LoRA
+              count 4*N*tokens over the bf16 peak; finite losses, the base
+              bitwise unchanged, every LoRA leaf moved; then one more step
+              from the same state with remat "dots" and with "none": both
+              peaks, the losses within 1e-3. The train step's attention is
+              the reference's "xla" (plain): no kernel launches (asserted)
+ 32. full train  the same on mamba2-1.3b FULL (48 layers), every parameter
+              trained (--train-mode full), B=8, S=512, 4 steps; its step
+              with remat "none" at B=2 (at B=8 it does not fit the card)
+ 33. train check  two ``make_train_step`` steps of each family's fp32 SMOKE
+              config (phi3, gemma2, mixtral, llava, musicgen, mamba2,
+              hymba) on the card against the CPU, remat "dots" and "none":
+              losses at rtol 1e-5, parameters within Adam's 2 * lr * steps,
+              mixtral's routings equal
+ 34. federated  ``launch/train.py --mode federated --backbone b2``, 2 rounds
+              (the fused block-LoRA kernel: rounds x 20 local steps +
+              evaluation batches, asserted), host s per round
+ 35. guard    flash attention, the gathered projection, the SSD scan and the
+              raw fused projection raise under autograd on the card; the
+              fused projection trains through its Function; the LoRA
+              fine-tune example at SMOKE (its loss falls) and
+              ``train.py --smoke``'s save-and-resume (losses bitwise equal
+              to the uninterrupted run's)
 Each path's launch counts are zeroed just before it and read just after.
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero,
@@ -2426,6 +2453,340 @@ def zoo_check(torch, serve, api, kops, tree_map, moe, get_arch) -> None:
     _moe_layer_check(torch, moe)
 
 
+# -- phases 31-35 -----------------------------------------------------------
+
+# launch/train.py's backbone mode at the reference's defaults (B=8, S=128,
+# lr 1e-3, LoRA, the config's remat "dots"), cut to TRAIN_STEPS steps
+TRAIN_STEPS = 8
+# mamba2-1.3b FULL, every parameter trained: S a multiple of ssd_chunk 64.
+# Its step with remat "none" runs at a quarter of the batch: at B=8 it ran
+# out of the card's 80 GB (77.8 GB allocated; the plain SSD scan's fp32
+# intermediates of 48 layers)
+MAMBA_TRAIN = dict(batch=8, seq=512, steps=4, remat_batch=2)
+# the reference's model-FLOP count of a train step (its roofline.py
+# model_flops): factor x base parameters x tokens; a frozen base skips dW.
+# Its share is taken of BF16_FLOPS_PER_S
+TRAIN_FLOP_FACTOR = {"lora": 4.0, "full": 6.0}
+TRAIN_RTOL = 1e-5  # card vs CPU losses, fp32, TF32 off
+REMAT_RTOL = 1e-3  # one step with remat "dots" vs "none": the same forward
+FEDERATED_ROUNDS = 2
+
+
+def _bits_fingerprint(torch, tree_leaves) -> list:
+    """Per leaf, the int64 sum of its raw 16- or 32-bit words: a change of
+    any element's bits moves it (short of a cancelling pair)."""
+    out = []
+    for t in tree_leaves:
+        words = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        out.append(int(words.sum(dtype=torch.int64)))
+    return out
+
+
+def _train_args(train, ckpt_dir, *extra):
+    return train.parse_args(["--ckpt-dir", str(ckpt_dir), "--log-every",
+                             "1000", *extra])
+
+
+def _remat_repeat(torch, train, step_fns, bb, args, batch_rows) -> dict:
+    """One more step from the run's state with the config's remat and with
+    "none", on the same batch (its first ``batch_rows`` rows): the loss and
+    the peak memory of each."""
+    import argparse
+
+    batch = next(train.token_batches(bb, argparse.Namespace(
+        **{**vars(args), "steps": bb.step + 1})))
+    batch = {k: v[:batch_rows] for k, v in batch.items()}
+    out = {}
+    for remat in (bb.cfg.remat, "none"):
+        cfg = dataclasses.replace(bb.cfg, remat=remat)
+        step = step_fns.make_train_step(cfg, lr=args.lr,
+                                        train_mode=args.train_mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss = float(step(bb.params, bb.opt, batch)[2]["loss"])
+        torch.cuda.synchronize()
+        out[remat] = (loss, torch.cuda.max_memory_allocated(), before,
+                      time.perf_counter() - t0)
+    return out
+
+
+def backbone_train(torch, train, step_fns, api, kops, arch, extra, label,
+                   remat_batch=None) -> None:
+    """Phases 31-32: ``launch/train.py``'s backbone path on the card:
+    per-step loss, ms per step (step 1 apart), tokens/s, peak memory, the
+    reference's model-FLOP count over the bf16 peak; finite losses; a
+    frozen base bitwise unchanged (lora) and every trainable leaf moved;
+    then one step with remat "none" from the same state."""
+    from repro_torch.tree import leaves, leaves_with_path
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        args = _train_args(train, d, "--arch", arch, *extra)
+        t0 = time.perf_counter()
+        bb, ckpt = train.build_backbone(args)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        state_bytes = torch.cuda.memory_allocated()
+        tr, rest = step_fns.split_trainable(bb.params, args.train_mode)
+        frozen = leaves(rest)
+        frozen_bits = _bits_fingerprint(torch, frozen)
+        tr0 = dict(zip((p for p, _ in leaves_with_path(tr)),
+                       _bits_fingerprint(torch, leaves(tr))))
+        n_base = api.param_count(bb.params["base"])
+        n_train = sum(t.numel() for t in leaves(tr))
+        del tr
+        _reset_all(kops)
+        torch.cuda.reset_peak_memory_stats()
+        hist = train.train_steps(bb, args, ckpt)
+        peak = torch.cuda.max_memory_allocated()
+        n = _counts(kops)
+        rows = remat_batch or args.batch
+        rep = _remat_repeat(torch, train, step_fns, bb, args, rows)
+    tokens = args.batch * args.seq
+    steady = hist["step_s"][1:]
+    mean_s = sum(steady) / len(steady)
+    flops = TRAIN_FLOP_FACTOR[args.train_mode] * n_base * tokens
+    tr_now = step_fns.split_trainable(bb.params, args.train_mode)[0]
+    moved = [p for (p, _), bits in zip(
+        leaves_with_path(tr_now), _bits_fingerprint(torch, leaves(tr_now)))
+        if bits != tr0[p]]
+    same_frozen = (all(a is b for a, b in zip(leaves(rest), frozen))
+                   and _bits_fingerprint(torch, frozen) == frozen_bits)
+    say(f"[{label}] {arch} FULL ({bb.cfg.n_layers} layers, d "
+        f"{bb.cfg.d_model}, {bb.cfg.param_dtype}), --train-mode "
+        f"{args.train_mode}, B={args.batch} S={args.seq}, lr {args.lr}, "
+        f"remat {bb.cfg.remat!r}, attn_impl {bb.cfg.attn_impl!r}: "
+        f"{n_base / 1e9:.3f} B base parameters, {n_train:,} trainable; "
+        f"built in {built:.1f}s; kernel launches in the steps {n} (the "
+        f"reference's attn_impl 'xla': the train step reaches no kernel)")
+    say(f"[{label}] losses per step: "
+        + ", ".join(f"{v:.4f}" for v in hist["loss"])
+        + "; grad norms " + ", ".join(f"{v:.3f}" for v in hist["grad_norm"]))
+    say(f"[{label}] ms per step (host wall after synchronize): step 1 "
+        f"{hist['step_s'][0] * 1e3:.1f}, steps 2-{len(hist['step_s'])} "
+        + ", ".join(f"{s * 1e3:.1f}" for s in steady)
+        + f" (mean {mean_s * 1e3:.1f}); {tokens / mean_s:.0f} tokens/s; "
+        f"peak memory {peak / 1e9:.2f} GB (max_memory_allocated over the "
+        f"steps; weights and optimizer state {state_bytes / 1e9:.2f} GB); "
+        f"the reference's {args.train_mode} count "
+        f"{TRAIN_FLOP_FACTOR[args.train_mode]:.0f}*N*tokens = "
+        f"{flops / 1e12:.1f} TFLOP per step, "
+        f"{flops / mean_s / BF16_FLOPS_PER_S:.1%} of 989 TFLOP/s "
+        f"(its floor {flops / BF16_FLOPS_PER_S * 1e3:.1f} ms)")
+    (l_r, p_r, b_r, s_r), (l_n, p_n, b_n, s_n) = \
+        rep[bb.cfg.remat], rep["none"]
+    rel = abs(l_r - l_n) / abs(l_n)
+    say(f"[{label}] one more step from the same state at B={rows}: remat "
+        f"{bb.cfg.remat!r} loss {l_r:.6f}, peak {p_r / 1e9:.2f} GB "
+        f"({(p_r - b_r) / 1e9:.2f} GB above the state), "
+        f"{s_r * 1e3:.1f} ms; remat 'none' loss {l_n:.6f}, peak "
+        f"{p_n / 1e9:.2f} GB ({(p_n - b_n) / 1e9:.2f} GB above), "
+        f"{s_n * 1e3:.1f} ms; relative difference {rel:.2e} (rtol "
+        f"{REMAT_RTOL}); frozen leaves bitwise unchanged: {same_frozen}; "
+        f"trainable leaves moved: {len(moved)} of {len(tr0)}")
+    if not all(math.isfinite(v) for v in hist["loss"] + [l_r, l_n]):
+        fail(f"{label}: a loss is not finite")
+    if any(n.values()):
+        fail(f"{label}: the 'xla' train step launched a kernel")
+    if not same_frozen or len(moved) != len(tr0):
+        fail(f"{label}: the frozen base changed or a trainable leaf did "
+             "not move")
+    if rel > REMAT_RTOL:
+        fail(f"{label}: remat changed the loss")
+
+
+_FAMILY_CHECKS = ["phi3-medium-14b", "gemma2-27b", "mixtral-8x7b",
+                  "llava-next-34b", "musicgen-large", "mamba2-1.3b",
+                  "hymba-1.5b"]
+
+
+def train_check(torch, step_fns, api, moe, tree_map, get_arch) -> None:
+    """Phase 33: two ``make_train_step`` steps (full mode) of each family's
+    fp32 SMOKE config on the card against the CPU from the same weights
+    and batches, TF32 off, with remat "dots" and "none": the losses, the
+    parameters (Adam's step is ~lr * sign(g), so an element whose gradient
+    is near its rounding may move the other way: bound 2 * lr * steps) and
+    mixtral's routings (``moe.route`` recorded on both sides)."""
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.optim import adam_init
+    from repro_torch.tree import leaves
+
+    lr, steps = 1e-3, 2
+    route = moe.route
+    for arch in _FAMILY_CHECKS:
+        for remat in ("dots", "none"):
+            cfg = dataclasses.replace(get_arch(arch).SMOKE, remat=remat)
+            cpu = api.init_model(torch.Generator().manual_seed(0), cfg,
+                                 "cpu")
+            got = {}
+            for where in ("cpu", "cuda"):
+                ids = []
+
+                def recording(p, x, k, ids=ids):
+                    out = route(p, x, k)
+                    ids.append(out[2].cpu())
+                    return out
+
+                moe.route = recording
+                params = tree_map(lambda t, w=where: t.to(w), cpu)
+                opt = adam_init(params)
+                step = step_fns.make_train_step(cfg, lr=lr, train_mode="full")
+                hist = []
+                try:
+                    for b in synthetic_token_batches(
+                            cfg.vocab, 2, 32, steps,
+                            n_codebooks=cfg.n_codebooks):
+                        batch = {k: torch.as_tensor(v, device=where)
+                                 for k, v in b.items()}
+                        if cfg.family == "vlm":
+                            batch["patches"] = torch.zeros(
+                                (2, cfg.n_patches, cfg.d_model),
+                                device=where)
+                        params, opt, m = step(params, opt, batch)
+                        hist.append(float(m["loss"]))
+                finally:
+                    moe.route = route
+                got[where] = (hist, [t.cpu() for t in leaves(params)], ids)
+            (hc, pc, ic), (hg, pg, ig) = got["cpu"], got["cuda"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(hg, hc))
+            err = max((a - b).abs().max().item() for a, b in zip(pg, pc))
+            close = sum(int(((a - b).abs() > 1e-5).sum())
+                        for a, b in zip(pg, pc))
+            n_el = sum(t.numel() for t in pc)
+            routes = sum(int((a != b).any(-1).sum()) for a, b in zip(ig, ic))
+            say(f"[train check] {arch} SMOKE fp32, remat {remat!r}: losses "
+                f"card " + ", ".join(f"{v:.6f}" for v in hg) + ", max "
+                f"relative error vs CPU {rel:.2e} (rtol {TRAIN_RTOL}); "
+                f"parameters max abs error {err:.2e} (bound "
+                f"{2 * lr * steps}), {close} of {n_el} elements beyond "
+                f"1e-5" + (f"; routings recorded {len(ig)}, tokens routed "
+                           f"differently {routes}" if ic else ""))
+            if rel > TRAIN_RTOL or err > 2 * lr * steps or routes or \
+                    len(ig) != len(ic):
+                fail(f"train check {arch} ({remat}): the card's train step "
+                     "differs from the CPU's")
+
+
+def federated_path(torch, md_ops, train) -> int:
+    """Phase 34: ``launch/train.py --mode federated --backbone b2`` (its
+    settings: 160 windows per subject, the paper fleet, utilization 2e-5,
+    FedConfig's E=5 x 4 steps), 2 rounds: kernel 3 launches once per local
+    step for all the clients it trains and once per evaluation batch."""
+    args = train.parse_args(["--mode", "federated", "--backbone", "b2",
+                             "--rounds", str(FEDERATED_ROUNDS)])
+    t0 = time.perf_counter()
+    run, ds = train.federated_run(args)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    fed = run.fed
+    want = FEDERATED_ROUNDS * fed.local_epochs * fed.steps_per_epoch \
+        + _eval_batches(ds)
+    md_ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = run.run(ds, log_every=args.eval_every)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = dict(md_ops.LAUNCHES)
+    fusion = run.state.trainable["lora"]["fusion"]
+    say(f"[federated] train.py --mode federated --backbone b2 (mm_config_for"
+        f"'s model: fusion a {tuple(fusion['a'].shape)}, b "
+        f"{tuple(fusion['b'].shape)}), {args.windows} windows per subject, "
+        f"fleet N={run.fleet.N}, {args.strategy}: built in {built:.1f}s; "
+        f"{FEDERATED_ROUNDS} rounds {wall:.2f}s host wall "
+        f"({wall / FEDERATED_ROUNDS:.2f} s per round, after synchronize); "
+        f"losses {[round(v, 4) for v in hist['loss']]}, F1 "
+        f"{hist['f1'][-1]:.4f}; kernel launches {n} (expected "
+        f"mdlora_matmul {want} = {FEDERATED_ROUNDS} rounds x "
+        f"{fed.local_epochs} epochs x {fed.steps_per_epoch} steps + "
+        f"{_eval_batches(ds)} evaluation batches)")
+    if n["mdlora_matmul"] != want or n["mdlora_matmul_multi"]:
+        fail("the federated mode did not launch kernel 3 as its path "
+             "requires")
+    if not all(math.isfinite(v) for v in hist["loss"] + hist["f1"]):
+        fail(f"federated: history not finite {hist}")
+    return n["mdlora_matmul"]
+
+
+def guard_and_small_runs(torch, fa_ops, md_ops, ssd_ops, md_ref,
+                         fused_block_lora, train, lora_ft) -> None:
+    """Phase 35: flash attention, the gathered projection, the SSD scan and
+    the raw fused projection raise under autograd on the card (each
+    kernel's output would carry no gradient) and run under no_grad; the
+    fused projection trains through its Function; the LoRA fine-tune
+    example at SMOKE and ``train.py``'s save-and-resume at SMOKE, resumed
+    losses bitwise equal to the uninterrupted run's."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    T = 45
+    q, k, v = rand(2, 8, 2, 2, 64), rand(2, T, 2, 64), rand(2, T, 2, 64)
+    qp = torch.arange(T - 8, T, dtype=torch.int32, device="cuda")
+    kp = torch.arange(T, dtype=torch.int32, device="cuda")
+    x, w0 = rand(8, 64), rand(64, 128)
+    a, b = rand(3, 64, 4), rand(3, 4, 128)
+    idx = torch.randint(0, 3, (8,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    sx, dt = rand(2, 64, 4, 16), torch.nn.functional.softplus(rand(2, 64, 4))
+    A_log, Bm, Cm = rand(4), rand(2, 64, 8), rand(2, 64, 8)
+    fx, fw0 = rand(8, 32, 112), rand(112, 128)
+    fa, fb, fm = rand(8, 112, 8), rand(8, 8, 128), torch.ones(112,
+                                                              device="cuda")
+    calls = {"flash_attention": (lambda: fa_ops.flash_attention(
+                 q, k, v, qp, kp), q),
+             "mdlora_matmul_multi": (lambda: md_ops.mdlora_matmul_multi(
+                 x, w0, a, b, idx), a),
+             "ssd": (lambda: ssd_ops.ssd(sx, dt, A_log, Bm, Cm, 16), sx),
+             "mdlora_matmul": (lambda: md_ops.mdlora_matmul(
+                 fx, fw0, fa, fb, fm, 2.0), fa)}
+    raised = {}
+    for name, (call, leaf) in calls.items():
+        leaf.requires_grad_()
+        try:
+            call()
+            raised[name] = False
+        except RuntimeError as e:
+            raised[name] = "has no backward" in str(e)
+        with torch.no_grad():
+            call()
+        leaf.requires_grad_(False)
+    fa.requires_grad_()
+    fused_block_lora(fx, fw0, fa, fb, fm, 2.0).square().sum().backward()
+    want = fa.detach().clone().requires_grad_()
+    md_ref.mdlora_matmul_ref(fx, fw0, want, fb, fm, 2.0).square().sum() \
+        .backward()
+    gerr = ((fa.grad - want.grad).abs().max()
+            / want.grad.abs().max()).item()
+    say(f"[guard] under autograd on the card, raised 'has no backward': "
+        f"{raised}; fused_block_lora's gradient vs the plain expression's: "
+        f"max error {gerr:.2e} of the largest")
+    if not all(raised.values()) or gerr > 1e-3:
+        fail("guard: a kernel ran under autograd, or the fused Function's "
+             "gradient is wrong")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        losses = lora_ft.main(["--device", "cuda", "--ckpt-dir",
+                               str(Path(d) / "ft")])
+        ft_s = time.perf_counter() - t0
+        smoke = ["--smoke", "--ckpt-every", "3", "--log-every", "1000"]
+        whole = train.main(smoke + ["--steps", "6", "--ckpt-dir",
+                                    str(Path(d) / "a")])
+        train.main(smoke + ["--steps", "3", "--ckpt-dir", str(Path(d) / "b")])
+        resumed = train.main(smoke + ["--steps", "6", "--ckpt-dir",
+                                      str(Path(d) / "b")])
+    say(f"[guard] lora_finetune_backbone (gemma2-27b SMOKE, 30 steps) on the "
+        f"card: loss {losses[0]:.4f} -> {losses[-1]:.4f}, {ft_s:.1f}s; "
+        f"train.py --smoke 6 steps vs 3 + resume + 3: losses "
+        + ", ".join(f"{v:.6f}" for v in whole["loss"][3:]) + " / "
+        + ", ".join(f"{v:.6f}" for v in resumed["loss"])
+        + f", bitwise equal: {resumed['loss'] == whole['loss'][3:]}")
+    if not losses[-1] < losses[0] or resumed["loss"] != whole["loss"][3:]:
+        fail("guard: the fine-tune example or the resume misbehaved")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2562,6 +2923,21 @@ def main() -> None:
     launches["mdlora_matmul_multi"] += md
     phase("zoo check", zoo_check, torch, serve, api, kops, tree_map, moe,
           get_arch)
+    from repro_torch.launch import lora_finetune_backbone, train
+    phase("lora train", backbone_train, torch, train, step_fns, api, kops,
+          "phi3-medium-14b", ["--steps", str(TRAIN_STEPS)], "lora train")
+    phase("full train", backbone_train, torch, train, step_fns, api, kops,
+          "mamba2-1.3b", ["--train-mode", "full", "--batch",
+                          str(MAMBA_TRAIN["batch"]), "--seq",
+                          str(MAMBA_TRAIN["seq"]), "--steps",
+                          str(MAMBA_TRAIN["steps"])], "full train",
+          MAMBA_TRAIN["remat_batch"])
+    phase("train check", train_check, torch, step_fns, api, moe, tree_map,
+          get_arch)
+    launches["mdlora_matmul"] += phase("federated", federated_path, torch,
+                                       md_ops, train)
+    phase("guard", guard_and_small_runs, torch, fa_ops, md_ops, ssd_ops,
+          md_ref, fused_block_lora, train, lora_finetune_backbone)
     lines = []
     for name, replaces in KERNELS.items():
         lines.append(dict(

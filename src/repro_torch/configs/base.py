@@ -69,12 +69,16 @@ class ModelConfig:
     # "pallas" = the op in repro_torch.kernels (CUDA kernel on a card tensor,
     # ref.py on a CPU tensor); "xla" = the plain chunked attention
     attn_impl: str = "xla"
-    # scan_layers, remat, seq_shard, loss_chunks, fsdp and quantize_serve
-    # are read by the reference's compiler and mesh paths only; kept so that
-    # configs convert field by field
+    # scan_layers, seq_shard, fsdp and quantize_serve are read by the
+    # reference's compiler and mesh paths only; kept so that configs convert
+    # field by field
     scan_layers: bool = True
+    # per-layer activation checkpointing under a backward: none | dots
+    # (keep the projections' outputs) | full (keep nothing)
     remat: str = "dots"
     seq_shard: bool = False
+    # CE loss computed in S-chunks (bounds the [B, S, V] logits transient
+    # of a 100k+ vocab); 1 = off
     loss_chunks: int = 1
     fsdp: bool = False
     quantize_serve: bool = False

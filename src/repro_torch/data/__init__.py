@@ -4,3 +4,4 @@ from repro_torch.data.har import (DATASETS, HARDataset, ModalityDef,
 from repro_torch.data.registry import (DatasetProvider, SyntheticProvider,
                                        get_provider, provider_names,
                                        register_provider)
+from repro_torch.data.tokens import synthetic_token_batches

@@ -1,4 +1,7 @@
-"""Uplink compression codecs for client deltas (int8 with error feedback).
+"""Uplink compression codecs for client deltas: int8 symmetric
+quantization (per leaf, or per client of a stacked tree, with or without
+error feedback), top-k sparsification with error feedback, and the byte
+accounting the communication simulator charges for each.
 
 Symmetric int8 per leaf: scale = max|x|/127, q = round(x/scale) clipped to
 [-127, 127]. ``torch.round`` rounds half to even, as ``jnp.round`` does, so
@@ -6,15 +9,32 @@ the codes equal the reference's wherever x/scale rounds the same in fp32.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 
 def _quantize(x32: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+
+
+def _quantize_leaf(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    scale = x32.abs().max().clamp(min=1e-12) / 127.0
+    return _quantize(x32, scale), scale
+
+
+def quantize_int8(tree: Any) -> tuple[Any, Any]:
+    """Per-leaf symmetric int8 -> (int8 tree, tree of 0-d fp32 scales)."""
+    pairs = tree_map(lambda x: _quantize_leaf(x.float()), tree)
+    return tuple(tree_map(lambda _, p, i=i: p[i], tree, pairs)
+                 for i in range(2))
+
+
+def dequantize_int8(qtree: Any, scales: Any) -> Any:
+    return tree_map(lambda q, s: q.float() * s, qtree, scales)
 
 
 def quantize_int8_ef(tree: Any, error: Any | None = None
@@ -28,8 +48,7 @@ def quantize_int8_ef(tree: Any, error: Any | None = None
     """
     def q(x, e):
         x32 = x.float() if e is None else x.float() + e
-        scale = x32.abs().max().clamp(min=1e-12) / 127.0
-        qv = _quantize(x32, scale)
+        qv, scale = _quantize_leaf(x32)
         return qv, scale, x32 - qv.float() * scale
 
     triples = (tree_map(lambda x: q(x, None), tree) if error is None
@@ -64,3 +83,50 @@ def dequantize_int8_stacked(qtree: Any, scales: Any) -> Any:
     return tree_map(
         lambda q, s: q.float() * s.reshape((-1,) + (1,) * (q.dim() - 1)),
         qtree, scales)
+
+
+def topk_sparsify(tree: Any, frac: float, error: Any | None = None
+                  ) -> tuple[Any, Any]:
+    """Magnitude top-k with error feedback -> (sparse tree, residual).
+
+    Per leaf of ``tree + error`` (fp32), k = ceil(frac * size) and the kept
+    entries are those whose magnitude reaches the k-th largest magnitude;
+    the residual (the dropped mass) is the next round's ``error``. Ties are
+    settled by that threshold, not by an index order: every entry equal in
+    magnitude to the k-th largest is kept, so a tie at the threshold keeps
+    more than k. This is the reference's rule (a sort and ``>=`` against
+    ``sort(|x|)[-k]``, ``repro/dist/__init__.py:98-124``; it does not call
+    ``lax.top_k``), and the threshold is an element of the same fp32 values
+    on both sides, so the kept sets are equal whatever the ties.
+    """
+    def sp(x, e):
+        x32 = x.float() if e is None else x.float() + e
+        flat = x32.reshape(-1)
+        k = max(1, int(math.ceil(frac * flat.numel())))
+        thresh = torch.sort(flat.abs()).values[-k]
+        sparse = (flat * (flat.abs() >= thresh).float()).reshape(x32.shape)
+        return sparse, x32 - sparse
+
+    pairs = (tree_map(lambda x: sp(x, None), tree) if error is None
+             else tree_map(sp, tree, error))
+    return tuple(tree_map(lambda _, p, i=i: p[i], tree, pairs)
+                 for i in range(2))
+
+
+def compressed_size_bytes(tree: Any, mode: str, frac: float | None = None
+                          ) -> int:
+    """Uplink bytes for one update under a codec.
+
+    none: 4 B per parameter. int8: 1 B per parameter + a 4 B scale per
+    leaf. topk: the kept values as (4 B value + 4 B index) pairs.
+    """
+    sizes = [x.numel() for x in leaves(tree)]
+    if mode == "none":
+        return sum(4 * n for n in sizes)
+    if mode == "int8":
+        return sum(n + 4 for n in sizes)
+    if mode == "topk":
+        if frac is None:
+            raise ValueError("topk needs frac")
+        return sum(8 * max(1, int(math.ceil(frac * n))) for n in sizes)
+    raise ValueError(mode)

@@ -12,6 +12,8 @@ dtype and shape, explicitly:
 - bf16, S*G <= ``DECODE_ROWS`` (decode): split-KV over ``plan_splits``
   chunks of T, then a combine launch; the wrapper allocates the scratch.
 
+A CUDA call raises when grad mode is on and an input requires a
+gradient (``runtime.refuse_backward``): the kernel has no backward.
 ``LAUNCHES["flash_attention"]`` counts calls of the op on the card (one per
 attention call, however many CUDA launches the call makes), never the plain
 version; ``PATH_LAUNCHES`` splits the same calls by path.
@@ -86,6 +88,8 @@ def flash_attention(q, k, v, q_pos, kv_pos, window=None, softcap=None):
                                        softcap)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    runtime.refuse_backward("flash_attention", q, k, v, hint=(
+        ", or train with attn_impl='xla' (the plain attention)"))
     if q.dim() != 5 or q.dtype not in _DTYPES:
         raise ValueError(f"q must be [B, S, K, G, hd] fp32/bf16, got "
                          f"{tuple(q.shape)} {q.dtype}")

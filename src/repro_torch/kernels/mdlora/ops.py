@@ -9,7 +9,11 @@ they take:
 
 Dispatch is by the tensor's device, with no fallback: a CPU tensor goes to
 the plain version in ``ref.py``; a CUDA tensor launches the CUDA kernel or
-raises. ``LAUNCHES`` counts calls that launched a kernel (never the plain
+raises. A CUDA call raises when grad mode is on and an input requires a
+gradient (``runtime.refuse_backward``): the kernels have no
+backward; ``mdlora_matmul`` trains through ``autograd.py``'s
+Function, whose forward runs with grad mode off.
+``LAUNCHES`` counts calls that launched a kernel (never the plain
 version).
 """
 from __future__ import annotations
@@ -109,6 +113,9 @@ def mdlora_matmul(x, w0, a, b, row_mask, scale: float = 2.0):
         return ref.mdlora_matmul_ref(x, w0, a, b, row_mask, scale)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    runtime.refuse_backward("mdlora_matmul", x, w0, a, b, row_mask, hint=(
+        ", or train through kernels/mdlora/autograd.py's fused_block_lora "
+        "(its backward)"))
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be fp32 or bf16, got {x.dtype}")
     ops = (("x", x, 2), ("w0", w0, 2), ("a", a, 2), ("b", b, 2))
@@ -218,6 +225,9 @@ def mdlora_matmul_multi(x, w0, a, b, adapter_idx, row_mask=None,
                                            row_mask, scale)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    runtime.refuse_backward("mdlora_matmul_multi", x, w0, a, b, row_mask,
+                            hint=", or train with lora_impl='xla' (the "
+                            "plain projection)")
     if x.dim() != 2 or x.dtype not in _DTYPES:
         raise ValueError(f"x must be [B, D] fp32/bf16, got {tuple(x.shape)} "
                          f"{x.dtype}")

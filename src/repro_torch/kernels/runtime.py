@@ -113,3 +113,18 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def refuse_backward(op: str, *tensors: torch.Tensor | None,
+                    hint: str = "") -> None:
+    """Raise when autograd would record ``op``'s kernel launch: grad mode is
+    on and an input requires a gradient. A kernel writes its output through
+    a raw pointer, so that output has no ``grad_fn`` and no gradient would
+    flow back through the op: a silently wrong gradient. (The reference's
+    Pallas kernels have no VJP either.) The plain versions, which CPU
+    tensors take, stay differentiable."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{op}: the CUDA kernel has no backward, and an input requires "
+            "a gradient; run it under torch.no_grad()" + hint)

@@ -5,6 +5,8 @@ the plain version in ``ref.py``; a CUDA tensor launches the CUDA kernel in
 ``csrc/ssd.cu`` or raises. bf16 at chunk <= 128 and n <= 128 (the serving
 shapes) is one launch of the tensor-core chunk walk; fp32, and bf16 past
 those sizes, the two launches of the fp32 scan (scores, then scan).
+A CUDA call raises when grad mode is on and an input requires a
+gradient (``runtime.refuse_backward``): the kernel has no backward.
 ``LAUNCHES`` counts calls that launched a kernel, never the plain version.
 """
 from __future__ import annotations
@@ -68,6 +70,9 @@ def ssd(x, dt, A_log, Bm, Cm, chunk: int, initial_state=None):
         return ref.ssd_ref(x, dt, A_log, Bm, Cm, chunk, initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    runtime.refuse_backward("ssd", x, dt, A_log, Bm, Cm, initial_state,
+                            hint=", or train with attn_impl='xla' (the "
+                            "plain scan)")
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"x must be [b, s, h, p] fp32/bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")

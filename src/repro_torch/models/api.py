@@ -1,7 +1,9 @@
-"""Family-dispatching model API -- the entry point serving uses.
+"""Family-dispatching model API -- the entry point training and serving
+use.
 
   init_model(generator, cfg, device)     -> params {"base": ..., "lora": ...}
   forward(params, cfg, batch)            -> (logits, aux_loss)
+  loss_fn(params, cfg, batch)            -> scalar loss
   init_caches(cfg, batch, max_len, ...)  -> decode caches
   decode_step(params, cfg, caches, token, pos) -> (logits, caches)
   prefill_with_cache(params, cfg, caches, tokens) -> (last logits, caches)
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid as HY
+from repro_torch.models import layers as L
 from repro_torch.models import ssm as SM
 from repro_torch.models import transformer as TF
 from repro_torch.tree import leaves
@@ -60,6 +63,42 @@ def forward_hidden(params: dict, cfg: ModelConfig, batch: dict) -> tuple:
 def forward(params: dict, cfg: ModelConfig, batch: dict) -> tuple:
     h, _, aux = forward_hidden(params, cfg, batch)
     return TF.unembed(params, cfg, h), aux
+
+
+def chunked_ce(params: dict, cfg: ModelConfig, h: torch.Tensor,
+               labels: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """CE over the vocab one sequence chunk at a time: the [B, S, V] logits
+    transient shrinks to [B, S / n_chunks, V]. The mean of the chunks'
+    mean CEs, summed in chunk order from 0 as the reference's scan sums
+    them. labels [B, S] (audio [B, S, n_codebooks])."""
+    S = h.shape[1]
+    if S % n_chunks:
+        raise ValueError(f"sequence {S} not divisible by {n_chunks} chunks")
+    c = S // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, c):
+        logits = TF.unembed(params, cfg, h[:, i:i + c])
+        total = total + L.cross_entropy_logits(logits, labels[:, i:i + c])
+    return total / n_chunks
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token CE + ``aux_weight`` x the MoE load-balancing aux
+    loss. ``batch``: tokens, labels ([B, S]; audio [B, S, n_codebooks]) and,
+    for vlm, ``patches`` [B, n_patches, d_model], whose positions carry no
+    loss (the CE runs over the text positions after them). The attention
+    families with ``cfg.loss_chunks > 1`` take the CE by ``chunked_ce``."""
+    labels = batch["labels"]
+    patches = batch.get("patches")
+    n_patch = 0 if patches is None else patches.shape[1]
+    if cfg.loss_chunks > 1 and _family(cfg) in _TF_FAMILIES:
+        h, _, aux = forward_hidden(params, cfg, batch)
+        return chunked_ce(params, cfg, h[:, n_patch:], labels,
+                          cfg.loss_chunks) + aux_weight * aux
+    logits, aux = forward(params, cfg, batch)
+    return L.cross_entropy_logits(logits[:, n_patch:], labels) \
+        + aux_weight * aux
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,

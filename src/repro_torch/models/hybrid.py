@@ -162,16 +162,19 @@ def _layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
             ) -> torch.Tensor:
     base = params["base"]["layers"]
     lora = params.get("lora", {}).get("layers")
+    run = TF.layer_remat(cfg, params, x, caches, dots=False)
     for layer in range(cfg.n_layers):
-        x, _ = hybrid_layer(TF._at(base, layer), TF._at(lora, layer), cfg, x,
-                            positions, TF._at(caches, layer), _window(cfg),
-                            ctx)
+        x, _ = run(hybrid_layer, TF._at(base, layer), TF._at(lora, layer),
+                   cfg, x, positions, TF._at(caches, layer), _window(cfg),
+                   ctx)
     return L.rmsnorm(params["base"]["final_norm"], x)
 
 
 def hybrid_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    skip_unembed: bool = False) -> tuple:
-    """-> (logits | final hidden, None, aux loss 0.0)."""
+    """-> (logits | final hidden, None, aux loss 0.0). Under a backward each
+    layer runs checkpointed whenever ``cfg.remat != "none"``, saving nothing
+    (``TF.layer_remat``), as the reference's ``jax.checkpoint``."""
     x = SM.embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x = _layers(params, cfg, x, positions, None, None)

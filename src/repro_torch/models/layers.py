@@ -8,7 +8,9 @@ and a conv weight is stored ``[W, I, O]`` as in XLA's ``WIO`` layout.
 ``cfg.dtype`` is the activation dtype; norm statistics and softmax run in
 fp32. Init draws the reference's shapes and scales from a
 ``torch.Generator``; it does not reproduce ``jax.random`` (tests carry the
-reference's weights over).
+reference's weights over). On the ``meta`` device init draws nothing: it
+makes empty tensors of the shapes and dtypes, so a full-width model's tree
+costs no memory (``step_fns.abstract_params``).
 """
 from __future__ import annotations
 
@@ -21,10 +23,16 @@ import torch.nn.functional as F
 GLOBAL_WINDOW = 2**31 - 1  # int32 max: "no sliding window"
 
 
+def _is_meta(device: torch.device | str) -> bool:
+    return torch.device(device).type == "meta"
+
+
 def _randn(shape: tuple[int, ...], generator: torch.Generator | None,
            device: torch.device | str) -> torch.Tensor:
     # draw on the generator's device, so one CPU generator gives the same
-    # weights on every device
+    # weights on every device; on meta, draw nothing
+    if _is_meta(device):
+        return torch.empty(shape, device=device)
     gdev = generator.device if generator is not None else "cpu"
     return torch.randn(shape, generator=generator, device=gdev).to(device)
 
@@ -33,8 +41,11 @@ def normal(generator: torch.Generator | None, shape: tuple[int, ...],
            std: float, device: torch.device | str,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """N(0, std^2) in ``dtype``, drawn in fp32 one leading slice at a time so
-    a stacked [L, ...] leaf never has an fp32 copy of its own size."""
+    a stacked [L, ...] leaf never has an fp32 copy of its own size (on
+    meta: the empty tensor)."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if _is_meta(device):
+        return out
     if len(shape) < 3:
         out.copy_(_randn(shape, generator, device) * std)
         return out

@@ -216,16 +216,24 @@ def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor
         cfg.runtime_dtype())
 
 
+def _block(p: dict, lp: dict | None, cfg: ModelConfig, x: torch.Tensor
+           ) -> torch.Tensor:
+    """One pre-norm residual layer of the full-sequence forward."""
+    y, _ = mamba_mixer(p["mixer"], cfg, L.rmsnorm(p["ln"], x), lp=lp)
+    return x + y
+
+
 def mamba_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   skip_unembed: bool = False) -> tuple:
-    """-> (logits | final hidden, None, aux loss 0.0)."""
+    """-> (logits | final hidden, None, aux loss 0.0). Under a backward each
+    layer runs checkpointed whenever ``cfg.remat != "none"``, saving nothing
+    (``TF.layer_remat``), as the reference's ``jax.checkpoint``."""
     x = embed(params, cfg, tokens)
     base = params["base"]["layers"]
     lora = params.get("lora", {}).get("layers")
+    run = TF.layer_remat(cfg, params, x, dots=False)
     for layer in range(cfg.n_layers):
-        p, lp = TF._at(base, layer), TF._at(lora, layer)
-        y, _ = mamba_mixer(p["mixer"], cfg, L.rmsnorm(p["ln"], x), lp=lp)
-        x = x + y
+        x = run(_block, TF._at(base, layer), TF._at(lora, layer), cfg, x)
     x = L.rmsnorm(params["base"]["final_norm"], x)
     if skip_unembed:
         return x, None, 0.0

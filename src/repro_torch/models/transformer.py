@@ -12,19 +12,29 @@ caches with an optional int8 store).
 
 Parameters keep the reference's tree (``{"base": ..., "lora": ...}``) with
 layers stacked ``[L, ...]``; a Python loop over layers takes the place of
-``jax.lax.scan``. The reference's ``act_hint`` sharding hints, ``remat``,
+``jax.lax.scan``. The reference's ``act_hint`` sharding hints,
 ``scan_layers`` and ``seq_shard`` have no meaning on one card and are not
-ported (the config fields stay). KV caches are updated in place: a forward
-or decode step with caches writes the new entries into the given tensors
-and returns the same tree. A caller that reuses a fresh cache must clone it.
+ported (the config fields stay). ``cfg.remat`` is honoured where a backward
+will run (``layer_remat``): each layer runs under a non-reentrant
+``torch.utils.checkpoint``, "dots" saving the outputs of the projections
+(``aten.mm``/``addmm``, the reference's
+``checkpoint_dots_with_no_batch_dims``) and recomputing the rest, "full"
+saving nothing; serving is unchanged. KV caches are updated in place: a
+forward or decode step with caches writes the new entries into the given
+tensors and returns the same tree. A caller that reuses a fresh cache must
+clone it.
 """
 from __future__ import annotations
 
+import functools
 import math
+from collections.abc import Callable
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import runtime
@@ -33,7 +43,7 @@ from repro_torch.kernels.mdlora import ops as md_ops
 from repro_torch.kernels.mdlora import ref as md_ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 GLOBAL_WINDOW = L.GLOBAL_WINDOW
 
@@ -348,6 +358,48 @@ def _layer_cache(caches: Any, layer: int, n_sub: int) -> dict | None:
     return _at(caches, layer)
 
 
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy of remat "dots": keep the 2-D products
+    (the projections, LoRA's included: ``x @ w`` on [B, S, d] runs as one
+    ``aten.mm``) and recompute everything else, the batched attention and
+    expert products among it -- JAX's ``checkpoint_dots_with_no_batch_dims``.
+    """
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _call(fn: Callable, *args: Any) -> Any:
+    return fn(*args)
+
+
+def layer_remat(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                caches: Any = None, dots: bool = True) -> Callable:
+    """How each layer runs, ``run(layer_fn, *args)``: a plain call, or under
+    a per-layer non-reentrant checkpoint when ``cfg.remat`` is "dots" or
+    "full" and a backward will run (grad mode on and ``x`` or a parameter
+    needs a gradient). "dots" keeps the projections' outputs
+    (``_save_dots``) when ``dots``; the recurrent families pass ``dots=False``
+    (the reference checkpoints their layers saving nothing). Layers with
+    caches never run checkpointed: their in-place cache writes would run
+    again in the recompute, so that raises."""
+    if cfg.remat not in ("none", "dots", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled() or not (
+            x.requires_grad or any(t.requires_grad for t in leaves(params))):
+        return _call
+    if caches is not None:
+        raise ValueError("remat needs a forward without caches: the "
+                         "in-place cache writes cannot run checkpointed")
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots" and dots:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda fn, *args: checkpoint(fn, *args, **kw)
+
+
 def _layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
             positions: torch.Tensor, caches: Any, ctx: dict | None
             ) -> tuple:
@@ -356,11 +408,12 @@ def _layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
     n_sub, windows = pattern(cfg)
     base = params["base"]["layers"]
     lora = params.get("lora", {}).get("layers")
+    run = layer_remat(cfg, params, x, caches)
     aux = 0.0
     for layer in range(cfg.n_layers):
-        x, _, a = _sublayer(_at(base, layer), _at(lora, layer), cfg, x,
-                            positions, _layer_cache(caches, layer, n_sub),
-                            windows[layer % n_sub], ctx)
+        x, _, a = run(_sublayer, _at(base, layer), _at(lora, layer), cfg, x,
+                      positions, _layer_cache(caches, layer, n_sub),
+                      windows[layer % n_sub], ctx)
         aux = aux + a
     return L.rmsnorm(params["base"]["final_norm"], x), aux
 

@@ -1269,3 +1269,93 @@ def test_moe_layer_on_card_matches_cpu(dev):
     assert torch.equal(c[0], d[0]) and torch.equal(c[1], d[1])
     torch.testing.assert_close(d[3], c[3], atol=1e-4, rtol=0)
     assert abs(c[4] - d[4]) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the no-backward guard and the LM train step
+# ---------------------------------------------------------------------------
+
+
+def test_kernels_refuse_autograd_on_card(dev):
+    """Each kernel writes its output through a raw pointer, so under
+    autograd its output would have no grad_fn: flash attention, the
+    gathered projection, the SSD scan and the raw fused projection raise
+    when grad mode is on and an input requires a gradient, and run under
+    no_grad. The fused projection trains through its autograd Function."""
+    q, k, v, qp, kp = _fa_inputs(2, 8, 45, 2, 2, 64, torch.float32, dev, 3)
+    x, w0, a, b, idx, mask = _md_inputs(8, 64, 128, 4, 3, torch.float32,
+                                        dev, 0)
+    sx, dt, A_log, Bm, Cm = _ssd_inputs(2, 64, 4, 16, 8, torch.float32, dev,
+                                        0)
+    fx, fw0, fa, fb, fm, scale = _fused_inputs(8, 32, 112, 128, 8,
+                                               torch.float32, dev, 0)
+    calls = [
+        (lambda: fa_ops.flash_attention(q, k, v, qp, kp), q),
+        (lambda: md_ops.mdlora_matmul_multi(x, w0, a, b, idx, mask), a),
+        (lambda: ssd_ops.ssd(sx, dt, A_log, Bm, Cm, 16), sx),
+        (lambda: md_ops.mdlora_matmul(fx, fw0, fa, fb, fm, scale), fa),
+    ]
+    for call, leaf in calls:
+        leaf.requires_grad_()
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+        with torch.no_grad():
+            call()
+        leaf.requires_grad_(False)
+    fa.requires_grad_()
+    fused_block_lora(fx, fw0, fa, fb, fm, scale).square().sum().backward()
+    want = fa.detach().clone().requires_grad_()
+    md_ref.mdlora_matmul_ref(fx, fw0, want, fb, fm, scale).square().sum() \
+        .backward()
+    torch.testing.assert_close(fa.grad, want.grad, atol=1e-3, rtol=1e-3)
+
+
+TRAIN_FAMILIES = ["phi3-medium-14b", "gemma2-27b", "mixtral-8x7b",
+                  "llava-next-34b", "musicgen-large", "mamba2-1.3b",
+                  "hymba-1.5b"]
+
+
+@pytest.mark.parametrize("remat", ["none", "dots"])
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_train_step_on_card_matches_cpu(dev, arch, remat):
+    """Two ``make_train_step`` steps (full mode) of the fp32 SMOKE config
+    on the card against the CPU from the same weights and batches, TF32
+    off: losses and gradient norms at rtol 1e-5, Adam's m at 1e-4 of each
+    leaf's largest, parameters within Adam's 2 * lr per step (an element
+    whose gradient is near its rounding may take the other sign at step
+    1)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch import step_fns
+    from repro_torch.models import api
+    from repro_torch.optim import adam_init
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_arch(arch).SMOKE, remat=remat)
+    cpu = api.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    out = {}
+    for where in ("cpu", dev):
+        params = tree_map(lambda t, w=where: t.to(w), cpu)
+        opt = adam_init(params)
+        step = step_fns.make_train_step(cfg, lr=1e-3, train_mode="full")
+        hist = []
+        for b in synthetic_token_batches(cfg.vocab, 2, 32, 2,
+                                         n_codebooks=cfg.n_codebooks):
+            batch = {k: torch.as_tensor(v, device=where)
+                     for k, v in b.items()}
+            if cfg.family == "vlm":
+                batch["patches"] = torch.zeros(
+                    (2, cfg.n_patches, cfg.d_model), device=where)
+            params, opt, m = step(params, opt, batch)
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        out[str(where)] = (hist, [t.cpu() for t in leaves(params)],
+                           [t.cpu() for t in leaves(opt["m"])])
+    (hc, pc, mc), (hg, pg, mg) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(np.asarray(hg), np.asarray(hc), rtol=1e-5)
+    for a, b in zip(mg, mc):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * b.abs().max().item())
+    for a, b in zip(pg, pc):
+        torch.testing.assert_close(a, b, rtol=0, atol=2 * 1e-3 * 2)
