@@ -207,6 +207,22 @@ Phases, each printing its lines (and its wall time) before the last:
               fine-tune example at SMOKE (its loss falls) and
               ``train.py --smoke``'s save-and-resume (losses bitwise equal
               to the uninterrupted run's)
+ 36. autotune the autotuner's timed branch (``kernels/cohort_agg/
+              autotune.py``) sweeps kernels 1-2's AggPlans at the path
+              shape (4, 112, 128) and 16384 x 1024 x 4, kernel 3's
+              persistent block count at its path shape and kernel 4's split
+              plan at phi3's wq (bf16): each candidate's time, the chosen
+              and the default plan's device time; every candidate's output
+              held against the plain version (kernel 3: bitwise equal
+              across counts); the sweep's launches join the kernels line
+ 37. dryrun   ``launch/dryrun.py``'s trace of phases 31-32's exact
+              configurations on a fake one-rank mesh, in a child process
+              started after phase 1 (the fake process group is global to
+              a process): predicted peak per device vs the measured
+              ``max_memory_allocated`` (asserted within 15%), counted
+              FLOPs vs ``model_flops``, t_compute / t_memory vs the
+              measured ms per step; and phi3-medium-14b train_4k on the
+              (16, 16) fake mesh without probes: status, GiB per device
 Each path's launch counts are zeroed just before it and read just after.
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero,
@@ -218,6 +234,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -2463,10 +2480,6 @@ TRAIN_STEPS = 8
 # out of the card's 80 GB (77.8 GB allocated; the plain SSD scan's fp32
 # intermediates of 48 layers)
 MAMBA_TRAIN = dict(batch=8, seq=512, steps=4, remat_batch=2)
-# the reference's model-FLOP count of a train step (its roofline.py
-# model_flops): factor x base parameters x tokens; a frozen base skips dW.
-# Its share is taken of BF16_FLOPS_PER_S
-TRAIN_FLOP_FACTOR = {"lora": 4.0, "full": 6.0}
 TRAIN_RTOL = 1e-5  # card vs CPU losses, fp32, TF32 off
 REMAT_RTOL = 1e-3  # one step with remat "dots" vs "none": the same forward
 FEDERATED_ROUNDS = 2
@@ -2513,12 +2526,16 @@ def _remat_repeat(torch, train, step_fns, bb, args, batch_rows) -> dict:
 
 
 def backbone_train(torch, train, step_fns, api, kops, arch, extra, label,
-                   remat_batch=None) -> None:
+                   remat_batch=None) -> dict:
     """Phases 31-32: ``launch/train.py``'s backbone path on the card:
     per-step loss, ms per step (step 1 apart), tokens/s, peak memory, the
-    reference's model-FLOP count over the bf16 peak; finite losses; a
-    frozen base bitwise unchanged (lora) and every trainable leaf moved;
-    then one step with remat "none" from the same state."""
+    model-FLOP count (``launch/roofline.py`` ``model_flops``: 4*N*tokens
+    LoRA, 6*N*tokens full) over the bf16 peak; finite losses; a frozen
+    base bitwise unchanged (lora) and every trainable leaf moved; then one
+    step with remat "none" from the same state. -> the peak and the mean
+    ms per step, for phase 37."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.roofline import model_flops
     from repro_torch.tree import leaves, leaves_with_path
 
     torch.cuda.empty_cache()
@@ -2547,7 +2564,9 @@ def backbone_train(torch, train, step_fns, api, kops, arch, extra, label,
     tokens = args.batch * args.seq
     steady = hist["step_s"][1:]
     mean_s = sum(steady) / len(steady)
-    flops = TRAIN_FLOP_FACTOR[args.train_mode] * n_base * tokens
+    flops = model_flops(bb.cfg, ShapeConfig("train", args.seq, args.batch,
+                                            "train"),
+                        args.train_mode)["model_flops"]
     tr_now = step_fns.split_trainable(bb.params, args.train_mode)[0]
     moved = [p for (p, _), bits in zip(
         leaves_with_path(tr_now), _bits_fingerprint(torch, leaves(tr_now)))
@@ -2570,8 +2589,8 @@ def backbone_train(torch, train, step_fns, api, kops, arch, extra, label,
         + f" (mean {mean_s * 1e3:.1f}); {tokens / mean_s:.0f} tokens/s; "
         f"peak memory {peak / 1e9:.2f} GB (max_memory_allocated over the "
         f"steps; weights and optimizer state {state_bytes / 1e9:.2f} GB); "
-        f"the reference's {args.train_mode} count "
-        f"{TRAIN_FLOP_FACTOR[args.train_mode]:.0f}*N*tokens = "
+        f"model_flops ({args.train_mode}: "
+        f"{flops / n_base / tokens:.0f}*N*tokens) = "
         f"{flops / 1e12:.1f} TFLOP per step, "
         f"{flops / mean_s / BF16_FLOPS_PER_S:.1%} of 989 TFLOP/s "
         f"(its floor {flops / BF16_FLOPS_PER_S * 1e3:.1f} ms)")
@@ -2595,6 +2614,7 @@ def backbone_train(torch, train, step_fns, api, kops, arch, extra, label,
              "not move")
     if rel > REMAT_RTOL:
         fail(f"{label}: remat changed the loss")
+    return {"peak": peak, "step_s": mean_s}
 
 
 _FAMILY_CHECKS = ["phi3-medium-14b", "gemma2-27b", "mixtral-8x7b",
@@ -2787,6 +2807,293 @@ def guard_and_small_runs(torch, fa_ops, md_ops, ssd_ops, md_ref,
         fail("guard: the fine-tune example or the resume misbehaved")
 
 
+# -- phases 36-37 -----------------------------------------------------------
+
+# the autotuner's sweep (kernels/cohort_agg/autotune.py, timed branch) at
+# the path and fleet shapes of kernels 1-2, kernel 3's path shape (8
+# clients x 32 rows, 112 -> 128, r 8: the sweep times 256 rows of one
+# adapter, the same 32 tiles) and kernel 4 at phi3's wq (bf16, 16 rows)
+AUTOTUNE_AGG = [("path", PATH_SHAPE), ("fleet", (16384, 1024, 4))]
+AUTOTUNE_FUSED = ("path", 8, 32, 112, 128, 8)
+AUTOTUNE_MULTI = ("phi3 wq", 16, 5120, 5120, 16, 8)
+
+
+def _agg_inputs(torch, N, D, r, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    x = torch.randn((N, D, r), **kw)
+    W = torch.rand((N, D), **kw) * (torch.rand((N, D), **kw) < 0.7)
+    C = (torch.rand((N, D), **kw) < 0.6).float()
+    q = torch.randint(-127, 128, (N, D, r), dtype=torch.int8, **kw)
+    s = torch.rand((N,), **kw) * 0.1 + 1e-3
+    st = torch.randint(0, 6, (N,), **kw).float()
+    return x, W, C, q, s, st
+
+
+def _agg_close(torch, name, label, plan, got, want, scale) -> float:
+    worst = 0.0
+    for o, a, b, S in zip(("agg", "sq", "mean", "cnt"), got, want, scale):
+        err = (a - b).abs()
+        if not torch.isfinite(a).all() or (
+                err > ATOL + RTOL * b.abs() + SUM_RTOL * S).any():
+            fail(f"autotune {name} {label} plan {plan} {o}: max abs err "
+                 f"{err.max().item():.3e} exceeds {ATOL} + {RTOL}*|plain| + "
+                 f"{SUM_RTOL}*sum|terms|")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def _say_sweep(name, label, timings, chosen, default, t_default, t_chosen,
+               errs) -> None:
+    say(f"[autotune] {name} {label}: {len(timings)} candidate plans, "
+        "sweep device time per call (median of reps, CUDA graph "
+        "replays): " + "; ".join(f"{p} {ms * 1e3:.2f} us (err {errs[p]:.2e})"
+                               for p, ms in timings))
+    say(f"[autotune] {name} {label}: chosen {chosen}, default {default}; "
+        f"device time (CUDA graph) default {t_default * 1e3:.2f} us, "
+        f"chosen {t_chosen * 1e3:.2f} us")
+
+
+def autotune_path(torch, autotune, ops, ref, md_ops, md_ref) -> dict:
+    """Phase 36: the autotuner's timed branch on the card. Each selector
+    sweeps its kernel's launch plans (a warm-up call, then the median of
+    ``_SWEEP_REPS`` replays of a CUDA graph of ``_REP_CALLS`` calls); the
+    wrappers' launches in the sweep are counted from 0 (the warm-up and the
+    captured calls; a replay launches without the wrapper).
+    Then every candidate plan's output is held against the plain version
+    with the tolerances of phases 3, 6 and 14 (kernel 3: every block count
+    also bitwise equal to the default's), and the default and the chosen
+    plan are timed on a CUDA graph. The ops' default plans stay."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    autotune.clear_cache()
+    ops.reset_launches()
+    md_ops.reset_launches()
+    picks = {}
+    for label, shape in AUTOTUNE_AGG:
+        for quant in (False, True):
+            picks[(label, quant)] = autotune.select_block_size(
+                shape, interpret=False, quant=quant)
+    _, K, T, D, F, r = AUTOTUNE_FUSED
+    picks["fused"] = autotune.select_mdlora_blocks((K * T, D, F, r),
+                                                   interpret=False)
+    _, B, Dm, Fm, A, rm = AUTOTUNE_MULTI
+    picks["multi"] = autotune.select_mdlora_blocks(
+        (B, Dm, Fm, rm), interpret=False, multi=True, n_adapters=A,
+        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = {**ops.LAUNCHES, **md_ops.LAUNCHES}
+    sweeps = dict(autotune.TIMINGS)
+    say(f"[autotune] sweep launches, counted from 0 across the selectors: "
+        f"{launches}")
+
+    for label, (N, D_, r_) in AUTOTUNE_AGG:
+        x, W, C, q, s, st = _agg_inputs(torch, N, D_, r_, N + D_ + r_)
+        default = ops.plan_agg(N, D_, r_, sms)
+        for quant in (False, True):
+            name = ("cohort_agg_divergence_quant" if quant
+                    else "cohort_agg_divergence")
+            if quant:
+                run = lambda p: ops.cohort_agg_divergence_quant(  # noqa: E731
+                    q, s, W, C, st, 0.5, plan=p)
+                want = ref.cohort_agg_divergence_quant_ref(q, s, W, C, st,
+                                                           0.5)
+                scale = ref.cohort_agg_divergence_quant_ref(q.abs(), s, W, C,
+                                                            st, 0.5)
+            else:
+                run = lambda p: ops.cohort_agg_divergence(  # noqa: E731
+                    x, W, C, plan=p)
+                want = ref.cohort_agg_divergence_ref(x, W, C)
+                scale = ref.cohort_agg_divergence_ref(x.abs(), W, C)
+            timings = sweeps[("agg", N, D_, r_, quant, sms)]
+            errs = {p: _agg_close(torch, name, label, p, run(p), want, scale)
+                    for p, _ in timings}
+            chosen = picks[(label, quant)]
+            iters = 20 if label == "fleet" else 200
+            t_default, _ = time_ms(torch, lambda: run(default), iters)
+            t_chosen, _ = time_ms(torch, lambda: run(chosen), iters)
+            _say_sweep(name, f"{label} N,D,r={N},{D_},{r_}", timings, chosen,
+                       default, t_default, t_chosen, errs)
+
+    label, K, T, D, F, r = AUTOTUNE_FUSED
+    x, w0, a, b, mask = _fused_inputs(torch, md_ops, K, T, D, F, r, ("w0",),
+                                      False, 36)
+    with torch.no_grad():
+        base = md_ops.mdlora_matmul(x, w0, a, b, mask, 2.0)
+        default = md_ops.fused_blocks()
+        want = md_ref.mdlora_matmul_ref(x, w0, a, b, mask, 2.0)
+        timings = sweeps[("mdlora", D, F, r, False, 1, str(torch.float32),
+                          sms)]
+        errs = {}
+        atol, rtol = FUSED_TOL[False]
+        for n, _ in timings:
+            got = md_ops.mdlora_matmul(x, w0, a, b, mask, 2.0, plan=n)
+            err = (got - want).abs()
+            if not torch.equal(got, base) or (
+                    err > atol + rtol * want.abs()).any():
+                fail(f"autotune mdlora_matmul {n} blocks: not bitwise the "
+                     f"default plan's, or max abs err {err.max().item():.3e}"
+                     f" exceeds {atol} + {rtol}*|plain|")
+            errs[n] = err.max().item()
+        chosen = picks["fused"]
+        t_default, _ = time_ms(torch, lambda: md_ops.mdlora_matmul(
+            x, w0, a, b, mask, 2.0), 200)
+        t_chosen, _ = time_ms(torch, lambda: md_ops.mdlora_matmul(
+            x, w0, a, b, mask, 2.0, plan=chosen), 200)
+    _say_sweep("mdlora_matmul", f"{label} K={K} T={T} {D}->{F} r={r} "
+               "(blocks; every count bitwise equal)", timings, chosen,
+               default, t_default, t_chosen, errs)
+
+    label, B, D, F, A, r = AUTOTUNE_MULTI
+    x, w0, a, b, idx, _ = _md_inputs(torch, md_ops, B, D, F, A, r, None,
+                                     True, 36)
+    with torch.no_grad():
+        want = md_ref.mdlora_matmul_multi_ref(x, w0, a, b, idx, None, 2.0)
+        timings = sweeps[("mdlora", D, F, r, True, A, str(torch.bfloat16),
+                          sms)]
+        errs = {}
+        atol, rtol = MD_TOL_BF16
+        for p, _ in timings:
+            got = md_ops.mdlora_matmul_multi(x, w0, a, b, idx, None, 2.0,
+                                             plan=p)
+            err = (got.float() - want.float()).abs()
+            if not torch.isfinite(got).all() or (
+                    err > atol + rtol * want.float().abs()).any():
+                fail(f"autotune mdlora_matmul_multi plan {p}: max abs err "
+                     f"{err.max().item():.3e} exceeds {atol} + "
+                     f"{rtol}*|plain|")
+            errs[p] = err.max().item()
+        chosen, default = picks["multi"], md_ops.plan_multi(D, F, sms)
+        t_default, _ = time_ms(torch, lambda: md_ops.mdlora_matmul_multi(
+            x, w0, a, b, idx, None, 2.0), 200)
+        t_chosen, _ = time_ms(torch, lambda: md_ops.mdlora_matmul_multi(
+            x, w0, a, b, idx, None, 2.0, plan=chosen), 200)
+    _say_sweep("mdlora_matmul_multi", f"{label} B={B} {D}->{F} A={A} r={r} "
+               "bf16 (L, sd, su, ug)", timings, chosen, default, t_default,
+               t_chosen, errs)
+    autotune.clear_cache()
+    return launches
+
+
+DRYRUN_CHECK = "--dryrun-check"  # the child mode of dryrun_path()
+# the configurations phases 31-32 measured: (arch, train mode, B, S), each
+# with its FULL config as train.py runs it (remat "dots", attn "xla")
+DRYRUN_TRAIN = [("phi3-medium-14b", "lora", 8, 128),
+                ("mamba2-1.3b", "full", MAMBA_TRAIN["batch"],
+                 MAMBA_TRAIN["seq"])]
+DRYRUN_MEM_RTOL = 0.15  # predicted peak vs measured max_memory_allocated
+
+
+def dryrun_child() -> None:
+    """The child mode: the dry-run's trace (``launch/dryrun.py``) of each
+    DRYRUN_TRAIN configuration on a fake one-rank mesh, then one production
+    cell, phi3-medium-14b train_4k on the (16, 16) mesh without probes;
+    one JSON line. The fake process group is global to a process, so this
+    runs apart from the card's phases; it touches no card."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import close_process_group, make_fake_mesh
+
+    # beside the parent's host-bound phases: one thread, lowest priority
+    torch.set_num_threads(1)
+    os.nice(19)
+    out = {"train": []}
+    mesh = make_fake_mesh((1, 1), ("data", "model"))
+    for arch, mode, B, S in DRYRUN_TRAIN:
+        mod = base.get_arch(arch)
+        shape = base.ShapeConfig("train", S, B, "train")
+        t0 = time.perf_counter()
+        got = dryrun._trace_step(mod.FULL, mod, shape, mesh, mode,
+                                 "replicated")
+        mf = roofline.model_flops(mod.FULL, shape, mode)
+        out["train"].append(dict(
+            arch=arch, mode=mode, batch=B, seq=S,
+            trace_s=time.perf_counter() - t0, peak=got["peak_bytes"],
+            state=got["argument_bytes"], flops=got["flops"],
+            bytes=got["bytes"], model_flops=mf["model_flops"],
+            **roofline.roofline_terms(got["flops"], got["bytes"],
+                                      got["coll"])))
+    close_process_group()
+    t0 = time.perf_counter()
+    try:  # recorded as the dry-run's CLI records a cell
+        cell = dryrun.run_cell("phi3-medium-14b", "train_4k", False,
+                               probes="skip")
+        out["cell"] = dict(status=cell["status"], strategy=cell["strategy"],
+                           per_device_gb=cell["memory"]["per_device_gb"],
+                           fits=cell["memory"]["fits_80gb_hbm"])
+    except Exception as e:  # noqa: BLE001 — reported by phase 37
+        out["cell"] = dict(status="error", error=repr(e)[:1500])
+    finally:
+        close_process_group()
+    out["cell"]["trace_s"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def start_dryrun_child() -> subprocess.Popen:
+    """Phase 37's child, started early: it needs no card, and its traces
+    (about a minute of host time) overlap the card's phases. Its output
+    goes to temporary files (a pipe left unread could fill and stall it);
+    it is killed if this process exits first."""
+    import atexit
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                              DRYRUN_CHECK], stdout=out, stderr=err,
+                             text=True)
+    child.files = (out, err)
+    atexit.register(lambda: child.poll() is None and child.kill())
+    return child
+
+
+def dryrun_path(child: subprocess.Popen, measured: dict) -> None:
+    """Phase 37: the dry-run against the card. For each configuration of
+    phases 31-32: the predicted peak per device against the measured
+    ``max_memory_allocated`` (asserted within DRYRUN_MEM_RTOL), the counted
+    FLOPs against ``model_flops``, and t_compute / t_memory (H100
+    data-sheet constants) against the measured ms per step; then the
+    production cell's status and per-device GB (a cell that does not trace
+    is reported with its error, as the dry-run's grid records it)."""
+    try:
+        child.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        fail("the dry-run child did not finish in 900 s")
+    stdout, stderr = (f.seek(0) or f.read() for f in child.files)
+    if child.returncode != 0:
+        fail(f"the dry-run child failed ({child.returncode}):\n"
+             f"{stderr[-4000:]}")
+    got = json.loads(stdout.strip().splitlines()[-1])
+    for row in got["train"]:
+        m = measured[row["arch"]]
+        rel = (row["peak"] - m["peak"]) / m["peak"]
+        say(f"[dryrun] {row['arch']} FULL {row['mode']} B={row['batch']} "
+            f"S={row['seq']} on a fake one-rank mesh (traced in "
+            f"{row['trace_s']:.1f}s of host time): predicted peak "
+            f"{row['peak'] / 1e9:.2f} GB (state {row['state'] / 1e9:.2f} GB)"
+            f" vs measured {m['peak'] / 1e9:.2f} GB (phase "
+            f"{m['phase']}): {rel:+.1%} (bound {DRYRUN_MEM_RTOL:.0%}); "
+            f"counted FLOPs {row['flops'] / 1e12:.2f} T vs model_flops "
+            f"{row['model_flops'] / 1e12:.2f} T "
+            f"({row['flops'] / row['model_flops']:.3f}x); t_compute "
+            f"{row['t_compute_s'] * 1e3:.1f} ms, t_memory (unfused bytes "
+            f"{row['bytes'] / 1e9:.1f} GB) {row['t_memory_s'] * 1e3:.1f} ms,"
+            f" dominant {row['dominant']}, vs measured "
+            f"{m['step_s'] * 1e3:.1f} ms per step "
+            f"({max(row['t_compute_s'], row['t_memory_s']) / m['step_s']:.1%}"
+            " of it)")
+        if abs(rel) > DRYRUN_MEM_RTOL:
+            fail(f"dryrun {row['arch']}: predicted peak off by {rel:+.1%}")
+    c = got["cell"]
+    say("[dryrun] production cell phi3-medium-14b train_4k single (16 x 16 "
+        f"fake mesh, no probes), traced in {c['trace_s']:.1f}s: status "
+        f"{c['status']}, " + (
+            f"{c['strategy']}, {c['per_device_gb']} GiB per device (fits "
+            f"80 GB: {c['fits']})" if c["status"] == "ok" else c["error"]))
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2796,6 +3103,7 @@ def main() -> None:
 
     t_start = time.perf_counter()
     card(torch)
+    dryrun_child = start_dryrun_child()
     from repro_torch.configs import get_arch
     from repro_torch.kernels import runtime
     from repro_torch.kernels.cohort_agg import ops, ref
@@ -2924,20 +3232,28 @@ def main() -> None:
     phase("zoo check", zoo_check, torch, serve, api, kops, tree_map, moe,
           get_arch)
     from repro_torch.launch import lora_finetune_backbone, train
-    phase("lora train", backbone_train, torch, train, step_fns, api, kops,
-          "phi3-medium-14b", ["--steps", str(TRAIN_STEPS)], "lora train")
-    phase("full train", backbone_train, torch, train, step_fns, api, kops,
+    measured = {}
+    measured["phi3-medium-14b"] = dict(phase=31, **phase(
+        "lora train", backbone_train, torch, train, step_fns, api, kops,
+        "phi3-medium-14b", ["--steps", str(TRAIN_STEPS)], "lora train"))
+    measured["mamba2-1.3b"] = dict(phase=32, **phase(
+        "full train", backbone_train, torch, train, step_fns, api, kops,
           "mamba2-1.3b", ["--train-mode", "full", "--batch",
                           str(MAMBA_TRAIN["batch"]), "--seq",
                           str(MAMBA_TRAIN["seq"]), "--steps",
                           str(MAMBA_TRAIN["steps"])], "full train",
-          MAMBA_TRAIN["remat_batch"])
+          MAMBA_TRAIN["remat_batch"]))
     phase("train check", train_check, torch, step_fns, api, moe, tree_map,
           get_arch)
     launches["mdlora_matmul"] += phase("federated", federated_path, torch,
                                        md_ops, train)
     phase("guard", guard_and_small_runs, torch, fa_ops, md_ops, ssd_ops,
           md_ref, fused_block_lora, train, lora_finetune_backbone)
+    from repro_torch.kernels.cohort_agg import autotune
+    for name, n in phase("autotune", autotune_path, torch, autotune, ops,
+                         ref, md_ops, md_ref).items():
+        launches[name] += n
+    phase("dryrun", dryrun_path, dryrun_child, measured)
     lines = []
     for name, replaces in KERNELS.items():
         lines.append(dict(
@@ -2955,6 +3271,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == [LAUNCH_COUNTS]:
         launch_counts_child()
+    elif sys.argv[1:] == [DRYRUN_CHECK]:
+        dryrun_child()
     elif sys.argv[1:] == [PROFILE_SYNC]:
         profile_sync_child()
     else:

@@ -8,9 +8,13 @@ and ``p_dtype`` return torch dtypes. Each architecture file exports
          model whose bf16 weights exceed the card runs there cut in depth)
   SMOKE  a reduced same-family configuration (CPU tests)
 
-All ten of the reference's LM architectures register. The reference's
-``input_specs`` / ``ShapeConfig`` belong to the dry-run, which is not
-ported.
+  input_specs(shape, cfg=FULL)  stand-ins for every input of a step at
+         one of the four shapes, as tensors on ``meta`` (no memory)
+
+All ten of the reference's LM architectures register. ``ShapeConfig`` and
+the four input regimes are the dry-run's (``launch/dryrun.py``);
+``long_500k`` cells of a pure full-attention architecture are unsupported
+(``supports``).
 """
 from __future__ import annotations
 
@@ -96,6 +100,21 @@ class ModelConfig:
                 else torch.float32)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
 _REGISTRY: dict[str, ModuleType] = {}
 _PORTED = ("phi3_medium_14b", "gemma2_27b", "granite_34b", "granite_3_8b",
            "llava_next_34b", "musicgen_large", "mixtral_8x7b",
@@ -123,3 +142,36 @@ def list_archs() -> list[str]:
     if not _REGISTRY:
         _load_all()
     return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# shared input_specs helpers
+# ---------------------------------------------------------------------------
+
+
+def meta(shape: tuple[int, ...], dtype: torch.dtype = torch.int32
+         ) -> torch.Tensor:
+    """A shape-and-dtype stand-in: an empty tensor on ``meta``."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def lm_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Stand-ins for an LM step's inputs (``meta`` tensors): train ->
+    tokens, labels [B, S]; prefill -> tokens [B, S]; decode -> one new
+    token [B, 1] and a scalar position against a cache of S tokens."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": meta((B, S)), "labels": meta((B, S))}
+    if shape.kind == "prefill":
+        return {"tokens": meta((B, S))}
+    return {"token": meta((B, 1)), "pos": meta(())}
+
+
+def supports(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k requires sub-quadratic attention (bounded KV or SSM
+    state): an ssm or hybrid family, or a sliding window."""
+    if shape.name != "long_500k":
+        return True
+    if cfg.family in ("ssm", "hybrid"):
+        return True
+    return cfg.sliding_window is not None

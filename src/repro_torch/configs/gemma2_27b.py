@@ -3,7 +3,8 @@ vocab=256000 — alternating local(4096)/global attention, logit softcaps,
 post-norms, GeGLU, query_pre_attn_scalar."""
 import sys
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import (ModelConfig, ShapeConfig,
+                                      lm_input_specs, register)
 
 FULL = ModelConfig(
     arch="gemma2-27b", family="dense", n_layers=46, d_model=4608, n_heads=32,
@@ -24,5 +25,10 @@ SMOKE = ModelConfig(
     query_scale=1.0 / 4.0, dtype="float32", param_dtype="float32",
     remat="none", q_chunk=32,
 )
+
+
+def input_specs(shape: ShapeConfig, cfg: ModelConfig = FULL) -> dict:
+    return lm_input_specs(cfg, shape)
+
 
 register("gemma2-27b", sys.modules[__name__])

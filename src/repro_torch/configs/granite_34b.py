@@ -4,7 +4,8 @@ MLP has three matrices where the published model has two, so FULL counts
 46.9 B parameters, not 34 B."""
 import sys
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import (ModelConfig, ShapeConfig,
+                                      lm_input_specs, register)
 
 FULL = ModelConfig(
     arch="granite-34b", family="dense", n_layers=88, d_model=6144, n_heads=48,
@@ -19,5 +20,10 @@ SMOKE = ModelConfig(
     activation="gelu", dtype="float32", param_dtype="float32", remat="none",
     q_chunk=32,
 )
+
+
+def input_specs(shape: ShapeConfig, cfg: ModelConfig = FULL) -> dict:
+    return lm_input_specs(cfg, shape)
+
 
 register("granite-34b", sys.modules[__name__])

@@ -6,7 +6,8 @@ paper's modality-blocked fusion layer on an LM: MDLoRA block 0 = the
 attention heads, block 1 = the SSD heads."""
 import sys
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import (ModelConfig, ShapeConfig,
+                                      lm_input_specs, register)
 
 FULL = ModelConfig(
     arch="hymba-1.5b", family="hybrid", n_layers=32, d_model=1600,
@@ -25,5 +26,10 @@ SMOKE = ModelConfig(
     layer_pattern="local", sliding_window=16, dtype="float32",
     param_dtype="float32", remat="none", q_chunk=16,
 )
+
+
+def input_specs(shape: ShapeConfig, cfg: ModelConfig = FULL) -> dict:
+    return lm_input_specs(cfg, shape)
+
 
 register("hymba-1.5b", sys.modules[__name__])

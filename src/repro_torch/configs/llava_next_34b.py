@@ -5,7 +5,8 @@ vision frontend is a stub: the caller supplies precomputed patch embeddings
 (``launch/serve.py`` draws them from the seed)."""
 import sys
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import (ModelConfig, ShapeConfig,
+                                      lm_input_specs, meta, register)
 
 N_PATCHES = 2880  # anyres 4+1 tiles x 576 patches
 
@@ -23,5 +24,23 @@ SMOKE = ModelConfig(
     tie_embeddings=False, n_patches=16, dtype="float32",
     param_dtype="float32", remat="none", q_chunk=16,
 )
+
+def input_specs(shape: ShapeConfig, cfg: ModelConfig = FULL) -> dict:
+    """Prefill and train sequences are [patch embeddings ; text tokens],
+    shape.seq_len positions in all; decode runs on the text tail."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return lm_input_specs(cfg, shape)
+    n_text = S - cfg.n_patches
+    if n_text <= 0:
+        raise ValueError(f"seq_len {S} leaves no text after "
+                         f"{cfg.n_patches} patches")
+    specs = {"tokens": meta((B, n_text)),
+             "patches": meta((B, cfg.n_patches, cfg.d_model),
+                             cfg.runtime_dtype())}
+    if shape.kind == "train":
+        specs["labels"] = meta((B, n_text))
+    return specs
+
 
 register("llava-next-34b", sys.modules[__name__])

@@ -4,7 +4,8 @@ expert d_ff=16384, vocab=32768, MoE 8 experts top-2, SWA. ~141B params.
 reads them on one card, so this model serves in bf16."""
 import sys
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import (ModelConfig, ShapeConfig,
+                                      lm_input_specs, register)
 
 FULL = ModelConfig(
     arch="mixtral-8x22b", family="moe", n_layers=56, d_model=6144,
@@ -21,5 +22,10 @@ SMOKE = ModelConfig(
     top_k=2, layer_pattern="local", sliding_window=16, tie_embeddings=False,
     dtype="float32", param_dtype="float32", remat="none", q_chunk=32,
 )
+
+
+def input_specs(shape: ShapeConfig, cfg: ModelConfig = FULL) -> dict:
+    return lm_input_specs(cfg, shape)
+
 
 register("mixtral-8x22b", sys.modules[__name__])

@@ -2,7 +2,8 @@
 d_ff=14336, vocab=32000, MoE 8 experts top-2, sliding-window attention."""
 import sys
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import (ModelConfig, ShapeConfig,
+                                      lm_input_specs, register)
 
 FULL = ModelConfig(
     arch="mixtral-8x7b", family="moe", n_layers=32, d_model=4096, n_heads=32,
@@ -18,5 +19,10 @@ SMOKE = ModelConfig(
     top_k=2, layer_pattern="local", sliding_window=16, tie_embeddings=False,
     dtype="float32", param_dtype="float32", remat="none", q_chunk=32,
 )
+
+
+def input_specs(shape: ShapeConfig, cfg: ModelConfig = FULL) -> dict:
+    return lm_input_specs(cfg, shape)
+
 
 register("mixtral-8x7b", sys.modules[__name__])

@@ -5,7 +5,8 @@ backbone takes codebook token ids [B, S, n_codebooks], sums the codebooks'
 embedding streams and predicts [B, S, n_codebooks, vocab] logits."""
 import sys
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import (ModelConfig, ShapeConfig, meta,
+                                      register)
 
 FULL = ModelConfig(
     arch="musicgen-large", family="audio", n_layers=48, d_model=2048,
@@ -20,5 +21,15 @@ SMOKE = ModelConfig(
     activation="gelu", tie_embeddings=False, dtype="float32",
     param_dtype="float32", remat="none", q_chunk=32,
 )
+
+def input_specs(shape: ShapeConfig, cfg: ModelConfig = FULL) -> dict:
+    """Token ids carry the codebook axis: [B, S, n_codebooks]."""
+    B, S, CB = shape.global_batch, shape.seq_len, cfg.n_codebooks
+    if shape.kind == "train":
+        return {"tokens": meta((B, S, CB)), "labels": meta((B, S, CB))}
+    if shape.kind == "prefill":
+        return {"tokens": meta((B, S, CB))}
+    return {"token": meta((B, 1, CB)), "pos": meta(())}
+
 
 register("musicgen-large", sys.modules[__name__])

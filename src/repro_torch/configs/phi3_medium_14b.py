@@ -2,7 +2,8 @@
 d_ff=17920, vocab=100352 — RoPE + SwiGLU + GQA decoder."""
 import sys
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import (ModelConfig, ShapeConfig,
+                                      lm_input_specs, register)
 
 FULL = ModelConfig(
     arch="phi3-medium-14b", family="dense", n_layers=40, d_model=5120,
@@ -17,5 +18,10 @@ SMOKE = ModelConfig(
     tie_embeddings=False, dtype="float32", param_dtype="float32",
     remat="none", q_chunk=32,
 )
+
+
+def input_specs(shape: ShapeConfig, cfg: ModelConfig = FULL) -> dict:
+    return lm_input_specs(cfg, shape)
+
 
 register("phi3-medium-14b", sys.modules[__name__])

@@ -127,11 +127,14 @@ def _check(x: torch.Tensor, x_dtype: torch.dtype, W: torch.Tensor,
     return N, D, r
 
 
-def _outputs(N: int, D: int, r: int, dev: torch.device):
-    """The plan of a call on ``dev``, its workspace and tile counters (None
-    with one split) and the four outputs."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = plan_agg(N, D, r, sms)
+def _outputs(N: int, D: int, r: int, dev: torch.device,
+             plan: AggPlan | None = None):
+    """The plan of a call on ``dev`` (``plan_agg``'s unless given), its
+    workspace and tile counters (None with one split) and the four
+    outputs."""
+    if plan is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = plan_agg(N, D, r, sms)
     ws = counters = None
     if plan.splits > 1:
         ws = torch.empty(plan.splits * 2 * (D * r + D), dtype=torch.float32,
@@ -159,14 +162,16 @@ def _device_kind(x: torch.Tensor) -> str:
     return x.device.type
 
 
-def cohort_agg_divergence(deltas, W, C):
+def cohort_agg_divergence(deltas, W, C, plan: AggPlan | None = None):
     """deltas [N, D, r] f32, W [N, D] (Eq. 3/4 weights), C [N, D] (Eq. 5
-    cohort) -> (agg [D,r], sqsum [D], mean [D,r], cnt [D])."""
+    cohort) -> (agg [D,r], sqsum [D], mean [D,r], cnt [D]). ``plan``
+    overrides ``plan_agg``'s (another plan adds in another order); the
+    plain version ignores it."""
     if _device_kind(deltas) == "cpu":
         return ref.cohort_agg_divergence_ref(deltas, W, C)
     N, D, r = _check(deltas, torch.float32, W, C)
     dev = deltas.device
-    plan, ws, counters, agg, sq, mean, cnt = _outputs(N, D, r, dev)
+    plan, ws, counters, agg, sq, mean, cnt = _outputs(N, D, r, dev, plan)
     if plan.vec == 4 and deltas.data_ptr() % 16:
         raise ValueError("deltas must be 16-byte aligned for its float4 "
                          "loads")
@@ -183,13 +188,15 @@ def cohort_agg_divergence(deltas, W, C):
 
 
 def cohort_agg_divergence_quant(q, scales, W, C, staleness,
-                                exponent: float = 0.0):
+                                exponent: float = 0.0,
+                                plan: AggPlan | None = None):
     """Fused quantized-ingest aggregation: one pass over the int8 uplink.
 
     q [N, D, r] int8 client chunks, scales [N] per-(client, leaf) dequant
     scales, W/C [N, D], staleness [N] server versions since pull. Equals
     ``cohort_agg_divergence(q * scales, W / (1+staleness)**exponent, C)``
-    without materializing the fp32 [N, D, r] stack.
+    without materializing the fp32 [N, D, r] stack. ``plan`` as for
+    ``cohort_agg_divergence``.
     """
     if _device_kind(q) == "cpu":
         return ref.cohort_agg_divergence_quant_ref(q, scales, W, C,
@@ -200,7 +207,7 @@ def cohort_agg_divergence_quant(q, scales, W, C, staleness,
     runtime.check_cuda_tensor("staleness", staleness, torch.float32, (N,),
                               q.device)
     dev = q.device
-    plan, ws, counters, agg, sq, mean, cnt = _outputs(N, D, r, dev)
+    plan, ws, counters, agg, sq, mean, cnt = _outputs(N, D, r, dev, plan)
     if plan.vec == 4 and q.data_ptr() % 4:
         raise ValueError("q must be 4-byte aligned for its char4 loads")
     with torch.cuda.device(dev):

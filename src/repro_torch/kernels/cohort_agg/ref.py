@@ -108,3 +108,19 @@ def cohort_agg_divergence_quant_split_ref(q, scales, W, C, staleness,
     s = scales.float()
     f = s * staleness_discount_ref(staleness, exponent)
     return _split_ref(q.float(), W, C, s, f, splits, lanes)
+
+
+def divergence_from_stats(sqsum, mean, cnt, row_block_ids, n_blocks: int):
+    """Reduce the row statistics to per-block divergences (Eq. 5): per row
+    sqsum / cnt - |mean|^2 (0 where cnt = 0), summed over the rows of each
+    block. The block sums are a masked reduction over a [n_blocks, D]
+    one-hot, not a scatter-add: ``index_add_`` on the card adds with float
+    atomics, whose order, and so the sum's last bits, change from call to
+    call."""
+    cnt = cnt.float()
+    per_row = torch.where(cnt > 0, sqsum.float() / cnt.clamp(min=1.0)
+                          - mean.float().square().sum(-1),
+                          torch.zeros_like(cnt))
+    blocks = torch.arange(n_blocks, device=per_row.device)
+    onehot = row_block_ids.long()[None, :] == blocks[:, None]
+    return torch.where(onehot, per_row[None, :], 0.0).sum(1)

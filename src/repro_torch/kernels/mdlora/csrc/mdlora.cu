@@ -550,12 +550,16 @@ extern "C" {
 int mdlora_max_rank() { return kMaxR; }
 
 // dtype 0 = fp32, 1 = bf16 (x, W0, a, b and y). Strides are in elements
-// between batch slices (0 = shared). y is [K, T, F], contiguous. Returns a
-// cudaError_t.
+// between batch slices (0 = shared). y is [K, T, F], contiguous. `blocks`
+// is the count of persistent blocks: <= 0 takes as many as are resident at
+// once; any count gives the same bits (each tile is summed by one block in
+// one order). The count launched is written to *used when used is not
+// null. Returns a cudaError_t.
 int mdlora_fused(const void* x, const void* w0, const void* a, const void* b,
                  const float* mask, float scale, int K, int T, int D, int F,
                  int r, int dtype, long long sx, long long sw, long long sa,
-                 long long sb, long long sm, void* y, void* stream) {
+                 long long sb, long long sm, int blocks, int* used, void* y,
+                 void* stream) {
   if (K < 1 || T < 1 || D < 1 || F < 1 || r < 1 || r > kMaxR)
     return (int)cudaErrorInvalidValue;
   static const Card card = configure();
@@ -578,12 +582,14 @@ int mdlora_fused(const void* x, const void* w0, const void* a, const void* b,
   for (long long v : row_bytes) vec = vec && v % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* kern = kernel_for(dtype, uf, vec);
-  // persistent blocks: as many as are resident at once, each walking its
-  // tiles with the next tile's copies in flight
+  // persistent blocks, each walking its tiles with the next tile's copies
+  // in flight: by default as many as are resident at once
   const int lu = uf == 1 ? 0 : uf == 2 ? 1 : uf == 4 ? 2 : 3;
   const long long slots =
-      (long long)card.resident[dtype == 1][lu][vec] * card.sms;
+      blocks > 0 ? (long long)blocks
+                 : (long long)card.resident[dtype == 1][lu][vec] * card.sms;
   const long long grid = tiles < slots ? tiles : slots;
+  if (used != nullptr) *used = (int)grid;
   void* args[] = {(void*)&x,  (void*)&w0, (void*)&a,  (void*)&b,
                   (void*)&mask, (void*)&scale, (void*)&T, (void*)&D,
                   (void*)&F,  (void*)&r,  (void*)&sx, (void*)&sw,

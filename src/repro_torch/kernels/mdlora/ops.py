@@ -95,12 +95,14 @@ def _fused_lib() -> ctypes.CDLL:
     lib.mdlora_max_rank.restype = _I
     L = ctypes.c_longlong
     lib.mdlora_fused.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, _I, _I,
-                                 _I, _I, _I, _I, L, L, L, L, L, _P, _P]
+                                 _I, _I, _I, _I, L, L, L, L, L, _I,
+                                 ctypes.POINTER(_I), _P, _P]
     lib.mdlora_fused.restype = _I
     return lib
 
 
-def mdlora_matmul(x, w0, a, b, row_mask, scale: float = 2.0):
+def mdlora_matmul(x, w0, a, b, row_mask, scale: float = 2.0,
+                  plan: int | None = None):
     """y = (x*m)@W0 + ((x*m)@a)@b*scale, one adapter for every row.
 
     x [T, D]; w0 [D, F]; a [D, r]; b [r, F]; row_mask [D] fp32 (None = all
@@ -108,6 +110,9 @@ def mdlora_matmul(x, w0, a, b, row_mask, scale: float = 2.0):
     [K, D, F], a [K, D, r], b [K, r, F], row_mask [K, D]); an operand
     without it is shared by every slice (the kernel reads it with stride 0).
     -> [T, F], or [K, T, F] when some operand is batched, in x's dtype.
+    ``plan`` is the kernel's count of persistent blocks (None: as many as
+    are resident at once, ``fused_blocks``); every count gives the same
+    bits. The plain version ignores it.
     """
     if x.device.type == "cpu":
         return ref.mdlora_matmul_ref(x, w0, a, b, row_mask, scale)
@@ -156,12 +161,21 @@ def mdlora_matmul(x, w0, a, b, row_mask, scale: float = 2.0):
             None if row_mask is None else row_mask.data_ptr(), float(scale),
             K or 1, T, D, F, r, _DTYPES[x.dtype], stride(x, 2),
             stride(w0, 2), stride(a, 2), stride(b, 2), stride(row_mask, 1),
-            out.data_ptr(), stream)
+            plan or 0, ctypes.byref(_USED), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mdlora_matmul: CUDA launch failed with error "
                            f"{err}")
     LAUNCHES["mdlora_matmul"] += 1
     return out
+
+
+_USED = ctypes.c_int(0)  # the persistent blocks of the last fused launch
+
+
+def fused_blocks() -> int:
+    """The count of persistent blocks the last ``mdlora_matmul`` launch
+    took (its plan)."""
+    return _USED.value
 
 
 @functools.cache
@@ -211,14 +225,17 @@ def _counters(dev: torch.device, n: int) -> torch.Tensor:
 
 
 def mdlora_matmul_multi(x, w0, a, b, adapter_idx, row_mask=None,
-                        scale: float = 2.0):
+                        scale: float = 2.0, plan: tuple | None = None):
     """Gathered multi-adapter projection: one fused call serves a batch of
     requests that each carry their own modality-block adapter.
 
     x [B, D] (one token per request); w0 [D, F] shared base; a [A, D, r] /
     b [A, r, F] stacked adapter store; adapter_idx [B] row -> slot;
     row_mask [B, D] per-request modality row masks (None = all present).
-    -> [B, F] in x's dtype.
+    -> [B, F] in x's dtype. ``plan`` overrides the split plan, which by
+    default is ``plan_multi`` (bf16: (L, sd, su, ug)) or ``_plan`` (fp32:
+    (sd, su)); another plan adds the partial sums in another order. The
+    plain version ignores it.
     """
     if x.device.type == "cpu":
         return ref.mdlora_matmul_multi_ref(x, w0, a, b, adapter_idx,
@@ -249,10 +266,10 @@ def mdlora_matmul_multi(x, w0, a, b, adapter_idx, row_mask=None,
                                   (B, D), dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if x.dtype == torch.bfloat16:
-        L, sd, su, ug = plan_multi(D, F, sms)
+        L, sd, su, ug = plan or plan_multi(D, F, sms)
         counters = _counters(dev, -(-F // TILE_F) + 3).data_ptr()
     else:
-        (sd, su), L, ug, counters = _plan(D, F, r, sms), 0, 0, None
+        (sd, su), L, ug, counters = plan or _plan(D, F, r, sms), 0, 0, None
     ws = torch.empty(sd * B * F + su * B * r, dtype=torch.float32,
                      device=dev)
     out = torch.empty((B, F), dtype=x.dtype, device=dev)

@@ -103,7 +103,12 @@ def load_library(source: Path) -> ctypes.CDLL:
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                       shape: tuple[int, ...], device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` -- what a raw-pointer kernel launch assumes."""
+    ``device`` -- what a raw-pointer kernel launch assumes. A fake tensor
+    (the dry-run's) or a DTensor has no memory of its own to point at."""
+    if type(t).__name__ in ("FakeTensor", "DTensor"):
+        raise TypeError(f"{name} is a {type(t).__name__}: a kernel reads "
+                        "raw device pointers; fake and distributed tensors "
+                        "take the plain path on the CPU")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

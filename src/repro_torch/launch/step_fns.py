@@ -17,6 +17,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import replicate_dim
 from repro_torch.models import api
 from repro_torch.optim import adam_init, adam_update
 from repro_torch.tree import leaves, tree_map
@@ -83,7 +84,9 @@ def make_serve_step(cfg: ModelConfig):
     def serve_step(params: dict, caches: Any, token: torch.Tensor,
                    pos: Any) -> tuple:
         logits, caches = api.decode_step(params, cfg, caches, token, pos)
-        return logits[:, -1:].argmax(-1).to(torch.int32), caches
+        # a vocab sharded over a mesh (DTensor) is gathered for the argmax
+        last = replicate_dim(logits[:, -1:], -1)
+        return last.argmax(-1).to(torch.int32), caches
 
     return serve_step
 

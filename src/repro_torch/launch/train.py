@@ -20,8 +20,9 @@ Two modes:
 The device is the CUDA card unless ``--device cpu`` is given. The step
 runs eagerly: the reference's ``jax.jit`` has no counterpart here, and a
 CUDA graph of the train step is path work for later (``ROADMAP.md`` §1).
-``--model-parallel`` above 1 raises: sharding arrives with
-``dist/sharding.py`` (``ROADMAP.md`` §1, item 2).
+``--model-parallel`` above 1 goes through ``launch/mesh.py``
+``make_host_mesh``, which raises unless that many cards are present (and a
+process group over them is open); the step itself runs on one device.
 
 One deliberate difference from the reference: ``--steps`` is the step the
 run ends at, and a resumed run goes on through the token stream from the
@@ -50,6 +51,7 @@ from repro_torch.data import (HARDataset, make_har_dataset, mm_config_for,
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch import serve
 from repro_torch.launch import step_fns as SF
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import adam_init
 from repro_torch.sim import make_fleet
 
@@ -87,10 +89,7 @@ def build_backbone(args: argparse.Namespace
     and the state of the latest checkpoint in ``--ckpt-dir`` where there is
     one."""
     if args.model_parallel > 1:
-        raise ValueError(
-            f"--model-parallel {args.model_parallel}: one device only; "
-            "model parallelism needs dist/sharding.py, which ROADMAP.md "
-            "section 1, item 2 (distribution and launch) brings")
+        make_host_mesh(args.model_parallel)
     dev = resolve_device(args.device)
     mod = get_arch(args.arch)
     cfg = mod.SMOKE if args.smoke else mod.FULL

@@ -76,9 +76,11 @@ def chunked_ce(params: dict, cfg: ModelConfig, h: torch.Tensor,
         raise ValueError(f"sequence {S} not divisible by {n_chunks} chunks")
     c = S // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(0, S, c):
-        logits = TF.unembed(params, cfg, h[:, i:i + c])
-        total = total + L.cross_entropy_logits(logits, labels[:, i:i + c])
+    # split, not slices: the gradient is one concatenation rather than a
+    # zero-padded [B, S, d] per chunk (which DTensor would also replicate)
+    for hc, lc in zip(h.split(c, dim=1), labels.split(c, dim=1)):
+        logits = TF.unembed(params, cfg, hc)
+        total = total + L.cross_entropy_logits(logits, lc)
     return total / n_chunks
 
 

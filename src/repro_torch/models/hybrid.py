@@ -21,6 +21,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import whole_heads
 from repro_torch.kernels import runtime
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SM
@@ -71,9 +72,11 @@ def _attn_heads(p: dict, lp: dict | None, cfg: ModelConfig, x: torch.Tensor,
                 ctx: dict | None = None) -> tuple:
     B, Sq, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = TF._proj(p["wq"], lp, "wq", x, cfg, ctx).reshape(B, Sq, H, hd)
-    k = TF._proj(p["wk"], lp, "wk", x, cfg, ctx).reshape(B, Sq, K, hd)
-    v = TF._proj(p["wv"], lp, "wv", x, cfg, ctx).reshape(B, Sq, K, hd)
+    q = whole_heads(TF._proj(p["wq"], lp, "wq", x, cfg, ctx), H)
+    k = whole_heads(TF._proj(p["wk"], lp, "wk", x, cfg, ctx), K)
+    v = whole_heads(TF._proj(p["wv"], lp, "wv", x, cfg, ctx), K)
+    q, k, v = (q.reshape(B, Sq, H, hd), k.reshape(B, Sq, K, hd),
+               v.reshape(B, Sq, K, hd))
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
 
@@ -86,7 +89,7 @@ def _attn_heads(p: dict, lp: dict | None, cfg: ModelConfig, x: torch.Tensor,
         TF._pos_scatter(cache["pos"], slots, positions)
         kk, vv, kv_pos = cache["k"], cache["v"], cache["pos"]
 
-    qg = q.reshape(B, Sq, K, H // K, hd)
+    qg = whole_heads(q, K, dim=2).reshape(B, Sq, K, H // K, hd)
     o = L._chunked_attention(qg, kk, vv, positions, kv_pos, window,
                              cfg.attn_softcap, cfg.q_chunk)
     return o.reshape(B, Sq, H * hd), cache

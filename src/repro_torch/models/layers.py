@@ -19,6 +19,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 GLOBAL_WINDOW = 2**31 - 1  # int32 max: "no sliding window"
 
@@ -85,10 +86,23 @@ def conv1d(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
 
 def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
                          mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean token cross-entropy; logits [..., V], labels [...] int."""
+    """Mean token cross-entropy; logits [..., V], labels [...] int.
+
+    Sharded logits (a DTensor, the dry-run's mesh) take the label's logit
+    by a masked sum over V, the same value, and the mean as a weighted sum
+    with weights of the logits' placement: the backward of a gather makes
+    a zeros tensor of the global [..., V] shape, and that of a plain mean
+    a gradient of that shape, both replicated on every device."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        hit = labels.long()[..., None] == vocab
+        ll = torch.where(hit, logits, 0.0).sum(-1)
+        if mask is None:
+            mask = torch.ones_like(lse)
+    else:
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
@@ -191,11 +205,12 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gets the mean of v, as the reference's softmax over all -1e30 gives.
     """
     B, S, K, G, hd = q.shape
-    T = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
     window = GLOBAL_WINDOW if window is None else int(window)
-    qp = torch.broadcast_to(q_positions.long(), (B, S))
-    kvp = torch.broadcast_to(kv_positions.long(), (B, T))
+    # [1 or B, S] and [1 or B, T]: shared positions make a mask of one row
+    # that broadcasts over the batch
+    qp = q_positions.long().reshape(-1, S)
+    kvp = kv_positions.long().reshape(-1, k.shape[1])
     k32, v32 = k.float(), v.float()
     outs = []
     for c0 in range(0, S, min(q_chunk, S)):
@@ -209,6 +224,50 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
         outs.append(torch.einsum("bqkgt,btkh->bqkgh", p, v32).to(q.dtype))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def attention(p: dict, dims: AttnDims, x: torch.Tensor,
+              positions: torch.Tensor, *, kv_cache: dict | None = None,
+              window: int | None = None, rope_theta: float = 10000.0,
+              attn_softcap_val: float | None = None,
+              query_scale: float | None = None, q_chunk: int = 1024,
+              attn_impl: str = "xla") -> tuple:
+    """Multi-head attention with GQA, RoPE, sliding window and softcap, on
+    one layer's weights; x [B, S, d], positions [S].
+
+    With ``kv_cache`` ({"k", "v": [B, T, K, hd], "pos": [T]}) the new k/v
+    are written at ``positions`` within the cache ring and attention runs
+    over the cache; otherwise self-attention over ``x``. The cache is
+    updated in a copy: -> (output [B, S, d], the new cache or None).
+    ``attn_impl`` "pallas" is the flash-attention op (the CUDA kernel on a
+    card tensor, its plain version on a CPU tensor).
+    """
+    B, S, _ = x.shape
+    H, K, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    q = apply_rope((x @ p["wq"]).reshape(B, S, H, hd), positions, rope_theta)
+    k = apply_rope((x @ p["wk"]).reshape(B, S, K, hd), positions, rope_theta)
+    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    if query_scale is not None:  # gemma-2's query_pre_attn_scalar
+        q = q * (query_scale * math.sqrt(hd))
+    new_cache = None
+    if kv_cache is None:
+        kk, vv, kv_pos = k, v, positions
+    else:
+        slots = positions % kv_cache["k"].shape[1]
+        kk, vv = kv_cache["k"].clone(), kv_cache["v"].clone()
+        kv_pos = kv_cache["pos"].clone()
+        kk[:, slots], vv[:, slots], kv_pos[slots] = k, v, positions
+        new_cache = {"k": kk, "v": vv, "pos": kv_pos}
+    qg = q.reshape(B, S, K, H // K, hd)
+    if attn_impl == "pallas":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+
+        o = fa_ops.flash_attention(qg, kk, vv, positions, kv_pos, window,
+                                   attn_softcap_val)
+    else:
+        o = _chunked_attention(qg, kk, vv, positions, kv_pos, window,
+                               attn_softcap_val, q_chunk)
+    return o.reshape(B, S, H * hd) @ p["wo"], new_cache
 
 
 def init_glu_mlp(generator: torch.Generator | None, d_model: int, d_ff: int,
@@ -229,6 +288,9 @@ _ACTIVATIONS = {
 }
 
 
-def glu_mlp(p: dict, x: torch.Tensor, activation: str = "silu"
-            ) -> torch.Tensor:
-    return (_ACTIVATIONS[activation](x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+def glu_mlp(p: dict, x: torch.Tensor, activation: str = "silu",
+            hint=None) -> torch.Tensor:
+    g, u = x @ p["wg"], x @ p["wi"]
+    if hint is not None:  # TP: the hidden dim sharded over ``model``
+        g, u = hint(g), hint(u)
+    return (_ACTIVATIONS[activation](g) * u) @ p["wo"]

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import reduce_partial
 from repro_torch.kernels import runtime
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
@@ -212,7 +213,7 @@ def init_mamba_lm(generator: torch.Generator | None, cfg: ModelConfig,
 
 def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor
           ) -> torch.Tensor:
-    return F.embedding(tokens, params["base"]["embed"]).to(
+    return reduce_partial(F.embedding(tokens, params["base"]["embed"])).to(
         cfg.runtime_dtype())
 
 

@@ -12,9 +12,11 @@ caches with an optional int8 store).
 
 Parameters keep the reference's tree (``{"base": ..., "lora": ...}``) with
 layers stacked ``[L, ...]``; a Python loop over layers takes the place of
-``jax.lax.scan``. The reference's ``act_hint`` sharding hints,
-``scan_layers`` and ``seq_shard`` have no meaning on one card and are not
-ported (the config fields stay). ``cfg.remat`` is honoured where a backward
+``jax.lax.scan`` (``scan_layers`` is read by nothing). The reference's
+``act_hint`` sharding hints sit at its sites (``dist/sharding.py``): they
+return their input unless a mesh is installed and the tensor is a DTensor,
+as in the dry-run; ``seq_shard`` labels the residual stream's sequence axis
+"model" there. ``cfg.remat`` is honoured where a backward
 will run (``layer_remat``): each layer runs under a non-reentrant
 ``torch.utils.checkpoint``, "dots" saving the outputs of the projections
 (``aten.mm``/``addmm``, the reference's
@@ -33,10 +35,13 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (act_hint, gather_weight, reduce_partial,
+                                       whole_heads)
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.mdlora import ops as md_ops
@@ -235,9 +240,12 @@ def _attention_lora(p: dict, lp: dict | None, cfg: ModelConfig,
     dims = attn_dims(cfg)
     B, S, _ = x.shape
     H, K, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    q = _proj(p["wq"], lp, "wq", x, cfg, ctx).reshape(B, S, H, hd)
-    k = _proj(p["wk"], lp, "wk", x, cfg, ctx).reshape(B, S, K, hd)
-    v = _proj(p["wv"], lp, "wv", x, cfg, ctx).reshape(B, S, K, hd)
+    q = act_hint(_proj(p["wq"], lp, "wq", x, cfg, ctx), "batch", None, "model")
+    k = act_hint(_proj(p["wk"], lp, "wk", x, cfg, ctx), "batch", None, "model")
+    v = act_hint(_proj(p["wv"], lp, "wv", x, cfg, ctx), "batch", None, "model")
+    q = whole_heads(q, H).reshape(B, S, H, hd)
+    k = whole_heads(k, K).reshape(B, S, K, hd)
+    v = whole_heads(v, K).reshape(B, S, K, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cfg.query_scale is not None:
@@ -266,27 +274,37 @@ def _attention_lora(p: dict, lp: dict | None, cfg: ModelConfig,
         _pos_scatter(kv_cache["pos"], slots, positions)
         kv_pos = kv_cache["pos"]
 
-    qg = q.reshape(B, S, K, H // K, hd)
-    if cfg.attn_impl == "pallas" and positions.dim() == 1 and kv_pos.dim() == 1:
-        o = fa_ops.flash_attention(qg, kk, vv, positions, kv_pos, window,
+    if (cfg.attn_impl == "pallas" and positions.dim() == 1
+            and kv_pos.dim() == 1):
+        o = fa_ops.flash_attention(q.reshape(B, S, K, H // K, hd), kk, vv,
+                                   positions, kv_pos, window,
                                    cfg.attn_softcap)
     else:
         # plain path; the reference repeats KV to full heads for its TP
-        # sharding, the grouped layout computes the same scores
-        o = L._chunked_attention(qg, kk, vv, positions, kv_pos, window,
-                                 cfg.attn_softcap, cfg.q_chunk)
-    o = o.reshape(B, S, H * hd)
+        # sharding, the grouped layout computes the same scores. The head
+        # axes take the "model" axis where it divides them
+        q = act_hint(q, "batch", None, "model_pad", None)
+        kk = act_hint(kk, "batch", None, "model_pad", None)
+        vv = act_hint(vv, "batch", None, "model_pad", None)
+        q = whole_heads(q, K, dim=2)  # the grouped split below
+        o = L._chunked_attention(q.reshape(B, S, K, H // K, hd), kk, vv,
+                                 positions, kv_pos, window, cfg.attn_softcap,
+                                 cfg.q_chunk)
+    o = act_hint(o.reshape(B, S, H * hd), "batch", None, "model")
     return _proj(p["wo"], lp, "wo", o, cfg, ctx), kv_cache
 
 
 def _sublayer(p: dict, lp: dict | None, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, cache: dict | None, window: int,
               ctx: dict | None = None) -> tuple:
+    seq_ax = "model" if cfg.seq_shard else None
+    x = act_hint(x, "batch", seq_ax, None)  # residual (SP: seq-sharded)
     h = L.rmsnorm(p["ln1"], x)
     attn_out, new_cache = _attention_lora(p["attn"], lp, cfg, h, positions,
                                           cache, window, ctx)
     if cfg.post_norms:
         attn_out = L.rmsnorm(p["ln1b"], attn_out)
+    attn_out = act_hint(attn_out, "batch", seq_ax, None)  # SP: reduce-scatter
     x = x + attn_out
     h = L.rmsnorm(p["ln2"], x)
     if cfg.family == "moe":
@@ -295,9 +313,11 @@ def _sublayer(p: dict, lp: dict | None, cfg: ModelConfig, x: torch.Tensor,
                                    activation=cfg.activation,
                                    impl=cfg.moe_impl)
     else:
-        mlp_out, aux = L.glu_mlp(p["mlp"], h, cfg.activation), 0.0
+        hint = lambda t: act_hint(t, "batch", None, "model")  # noqa: E731
+        mlp_out, aux = L.glu_mlp(p["mlp"], h, cfg.activation, hint), 0.0
     if cfg.post_norms:
         mlp_out = L.rmsnorm(p["ln2b"], mlp_out)
+    mlp_out = act_hint(mlp_out, "batch", seq_ax, None)  # SP: reduce-scatter
     return x + mlp_out, new_cache, aux
 
 
@@ -315,9 +335,9 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.n_codebooks:  # codebook i's ids index rows i*vocab + id
         offs = torch.arange(cfg.n_codebooks, dtype=tokens.dtype,
                             device=tokens.device) * cfg.vocab
-        x = F.embedding(tokens + offs, emb).sum(2)
+        x = reduce_partial(F.embedding(tokens + offs, emb)).sum(2)
     else:
-        x = F.embedding(tokens, emb)
+        x = reduce_partial(F.embedding(tokens, emb))
     x = x.to(cfg.runtime_dtype())
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
@@ -327,16 +347,23 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     base = params["base"]
     if cfg.tie_embeddings:
-        logits = h @ base["embed"].T.to(h.dtype)
+        w = gather_weight(base["embed"]).T.to(h.dtype)
     else:
-        logits = h @ base["lm_head"]
+        w = gather_weight(base["lm_head"])
+    if isinstance(h, DTensor):  # one 2-D product: DTensor's [B, S, d] @
+        # [d, V] would expand w over the batch and shard that copy
+        logits = (h.reshape(-1, h.shape[-1]) @ w).reshape(
+            *h.shape[:-1], w.shape[-1])
+    else:
+        logits = h @ w
+    logits = act_hint(logits, "batch", None, "model")
     v = cfg.vocab * max(cfg.n_codebooks, 1)
     if logits.shape[-1] != v:  # drop vocab-padding columns
         logits = logits[..., :v]
     logits = L.softcap(logits, cfg.final_softcap)
     if cfg.n_codebooks:
-        logits = logits.reshape(*logits.shape[:-1], cfg.n_codebooks,
-                                cfg.vocab)
+        logits = whole_heads(logits, cfg.n_codebooks).reshape(
+            *logits.shape[:-1], cfg.n_codebooks, cfg.vocab)
     return logits
 
 

@@ -1359,3 +1359,69 @@ def test_train_step_on_card_matches_cpu(dev, arch, remat):
                                    atol=1e-4 * b.abs().max().item())
     for a, b in zip(pg, pc):
         torch.testing.assert_close(a, b, rtol=0, atol=2 * 1e-3 * 2)
+
+
+# ---------------------------------------------------------------------------
+# launch plans: the autotuner's candidates (kernels/cohort_agg/autotune.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,D,r", [(4, 112, 128), (64, 112, 8), (300, 100, 1)])
+def test_agg_kernels_under_every_candidate_plan(dev, N, D, r):
+    """Every AggPlan the sweep may pick gives the plain version's values
+    within the kernel's tolerance, both uplinks."""
+    from repro_torch.kernels.cohort_agg import autotune
+
+    x, W, C, q, s, st = _inputs(N, D, r, N + D + r, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = ref.cohort_agg_divergence_ref(x, W, C)
+    want_q = ref.cohort_agg_divergence_quant_ref(q, s, W, C, st, 0.5)
+    for plan in autotune.agg_candidates(N, D, r, sms):
+        for got, exp in ((ops.cohort_agg_divergence(x, W, C, plan=plan),
+                          want),
+                         (ops.cohort_agg_divergence_quant(
+                             q, s, W, C, st, 0.5, plan=plan), want_q)):
+            for a, b in zip(got, exp):
+                torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+def test_fused_kernel_bits_ignore_the_block_count(dev):
+    """Kernel 3 under any count of persistent blocks gives the same bits
+    (each tile is summed by one block in one order)."""
+    from repro_torch.kernels.cohort_agg import autotune
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((8, 32, 112), device=dev, generator=g)
+    w0 = torch.randn((112, 128), device=dev, generator=g) / 11
+    a = torch.randn((8, 112, 8), device=dev, generator=g) / 11
+    b = torch.randn((8, 8, 128), device=dev, generator=g) / 20
+    mask = (torch.rand((8, 112), device=dev, generator=g) < 0.8).float()
+    base = md_ops.mdlora_matmul(x, w0, a, b, mask, 2.0)
+    default = md_ops.fused_blocks()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in autotune.fused_candidates(32, default, sms) + [1, 3]:
+        assert torch.equal(md_ops.mdlora_matmul(x, w0, a, b, mask, 2.0,
+                                                plan=n), base), n
+        assert md_ops.fused_blocks() == min(n, 32)
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
+def test_multi_kernel_under_every_candidate_plan(dev, bf16):
+    from repro_torch.kernels.cohort_agg import autotune
+
+    B, D, F, A, r = 16, 1600, 320, 4, 8
+    dt = torch.bfloat16 if bf16 else torch.float32
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((B, D), device=dev, generator=g).to(dt)
+    w0 = (torch.randn((D, F), device=dev, generator=g) / 40).to(dt)
+    a = torch.randn((A, D, r), device=dev, generator=g) / 40
+    b = torch.randn((A, r, F), device=dev, generator=g) * 0.05
+    idx = torch.randint(0, A, (B,), device=dev, generator=g,
+                        dtype=torch.int32)
+    want = md_ref.mdlora_matmul_multi_ref(x, w0, a, b, idx, None, 2.0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tol = dict(rtol=1e-2, atol=2e-2) if bf16 else dict(rtol=1e-4, atol=1e-4)
+    for plan in autotune.multi_candidates(D, F, r, sms, dt):
+        got = md_ops.mdlora_matmul_multi(x, w0, a, b, idx, None, 2.0,
+                                         plan=plan)
+        torch.testing.assert_close(got.float(), want.float(), **tol)

@@ -88,7 +88,9 @@ def test_backbone_other_families_train(tmp_path, arch, mode):
 
 
 def test_model_parallel_raises(tmp_path):
-    with pytest.raises(ValueError, match="sharding.py"):
+    """``--model-parallel 2`` goes through ``make_host_mesh``, which names
+    the cards present (none on the CPU)."""
+    with pytest.raises(ValueError, match="CUDA cards; 0 present"):
         train.main(_smoke(tmp_path, 1, "--model-parallel", "2"))
 
 
