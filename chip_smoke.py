@@ -223,6 +223,29 @@ Phases, each printing its lines (and its wall time) before the last:
               FLOPs vs ``model_flops``, t_compute / t_memory vs the
               measured ms per step; and phi3-medium-14b train_4k on the
               (16, 16) fake mesh without probes: status, GiB per device
+ 38. examples sync  ``launch/quickstart`` at its 12 rounds (PAMAP2, the
+              narrow CNN, paper fleet, FedAvg then RELIEF: F1, simulated
+              speedup, energy saving, upload, host s per round; RELIEF's
+              round shorter, as the reference asserts) and
+              ``launch/baseline_duel`` at 2 rounds (all eleven methods, host
+              s per method); Backbone 1: 0 kernel launches (asserted)
+ 39. serve backbone  ``launch/serve_backbone``'s loop (the prompt
+              prefilled through the decode step, then greedy decode) at
+              B=4, P=32, 24 steps: on phase 7's phi3-medium-14b FULL
+              weights with flash attention (run right after phase 8, while
+              they sit on the card: 40 layers x 56 steps = 2,240 split-KV
+              decode calls of a 56-slot ring that starts empty, asserted),
+              on phase 12's hymba-1.5b FULL weights (right after phase 12;
+              0 kernel launches, asserted), and a float32 phi3-shaped model
+              of 2 layers card (kernel) vs CPU (plain), tokens equal (after
+              phase 9); ms per prefill-through-decode step, ms per decode
+              step, tok/s
+ 40. fleet sim  ``launch/fleet_scale_sim`` (grad mode "none": host numpy,
+              no kernel) at N = 10^6, K = 64, 50 flushes, churn 0.01,
+              arrivals 0.02, jitter 0.1, and at N = 10^4, K = 64, 200
+              flushes without churn: wall, events/s, flushes/s, staleness
+              p50/p95/max, the alive share; completions >= flushes x K and a
+              finite simulated time (asserted)
 Each path's launch counts are zeroed just before it and read just after.
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero,
@@ -1018,14 +1041,25 @@ def serve_engine(torch, serve, kops, cfg, params) -> int:
 CHECK_ATOL = 1e-4  # fp32 logits, sums in another order over 2 layers
 
 
-def serve_check(torch, serve, serving_engine, api, kops, tree_map,
-                full) -> None:
-    cfg = dataclasses.replace(
+def _check_config(full):
+    """A float32 phi3-shaped model of 2 layers at d 512 (phases 9, 39)."""
+    return dataclasses.replace(
         full, arch="phi3-medium-14b-check", n_layers=2, d_model=512,
         n_heads=8, n_kv_heads=2, head_dim=64, d_ff=1792, vocab=2048,
         dtype="float32", param_dtype="float32", attn_impl="pallas")
+
+
+def _check_model(torch, api, tree_map, full) -> tuple:
+    """``_check_config``'s model from seed 3 -> (cfg, CPU params, the same
+    params on the card)."""
+    cfg = _check_config(full)
     cpu = api.init_model(torch.Generator().manual_seed(3), cfg, "cpu")
-    gpu = tree_map(lambda t: t.to("cuda"), cpu)
+    return cfg, cpu, tree_map(lambda t: t.to("cuda"), cpu)
+
+
+def serve_check(torch, serve, serving_engine, api, kops, tree_map,
+                full) -> None:
+    cfg, cpu, gpu = _check_model(torch, api, tree_map, full)
     kw = dict(n_adapters=4, batch=4, n_requests=10, prompt_len=40,
               min_prompt_len=8, decode_steps=8, seed=1)
     _reset_all(kops)
@@ -3094,6 +3128,206 @@ def dryrun_path(child: subprocess.Popen, measured: dict) -> None:
             f"80 GB: {c['fits']})" if c["status"] == "ok" else c["error"]))
 
 
+# -- phases 38-40 -----------------------------------------------------------
+
+QUICKSTART_ROUNDS = 12  # the reference script's default
+DUEL_ROUNDS = 2
+# serve_backbone's defaults (examples/serve_backbone.py): B=4, P=32, 24 steps
+SERVE_BACKBONE = dict(batch=4, prompt_len=32, decode_steps=24)
+# phi3-medium-14b's split-KV decode at serve_backbone's shape: B=4 and a
+# 56-slot ring (P + steps) that starts empty, so one 64-key tile and 1 to 56
+# filled slots (first step, mid-run, last step)
+SERVE_BACKBONE_FA_CASES = [  # as FA_CASES
+    (f"backbone decode {n}/56", 4, 1, 56, 10, 4, 128, n, None, None, True)
+    for n in (1, 33, 56)]
+# README's fleet-scale rows: (N, K, flushes, churn, arrivals, jitter)
+FLEET_SIMS = [(1_000_000, 64, 50, 0.01, 0.02, 0.1),
+              (10_000, 64, 200, 0.0, 0.0, 0.1)]
+
+
+def examples_sync(torch, ops, md_ops, quickstart, baseline_duel,
+                  smi) -> None:
+    """Phase 38: the quickstart and the baseline duel on the card (Backbone
+    1: no kernel)."""
+    kops = (ops, md_ops)
+    _reset_all(kops)
+    t0 = time.perf_counter()
+    task, tr0, fleet, fed, ds = quickstart.build(QUICKSTART_ROUNDS, 0,
+                                                 "cuda")
+    s = quickstart.summarize(quickstart.compare(task, tr0, fleet, fed, ds))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _counts(kops)
+    fa, rl = s["fedavg"], s["relief"]
+    say(f"[examples] quickstart ({smi}): {QUICKSTART_ROUNDS} rounds each, "
+        f"F1 FedAvg {fa['f1']:.4f} RELIEF {rl['f1']:.4f}; simulated round "
+        f"{fa['round_time_s']:.4f} s vs {rl['round_time_s']:.4f} s (speedup "
+        f"{s['speedup']:.4f}x); energy {fa['energy_j']:.2f} J vs "
+        f"{rl['energy_j']:.2f} J per round (saving "
+        f"{100 * s['energy_saving']:.2f}%); upload {fa['upload_mb']:.4f} MB "
+        f"vs {rl['upload_mb']:.4f} MB per round; host {wall:.2f} s, "
+        f"{wall / (2 * QUICKSTART_ROUNDS):.3f} s per round with its "
+        f"evaluations and the build; launches {n} (expected none: Backbone "
+        "1 has no fusion LoRA)")
+    if not rl["round_time_s"] < fa["round_time_s"]:
+        fail("quickstart: RELIEF's round is not shorter than FedAvg's")
+    if any(n.values()):
+        fail("quickstart launched a kernel off its path")
+    _reset_all(kops)
+    pieces = baseline_duel.build("pamap2", DUEL_ROUNDS, 0, "cuda")
+    rows, secs = [], []
+    for name in baseline_duel.METHODS:
+        t0 = time.perf_counter()
+        rows += baseline_duel.duel(*pieces, names=(name,))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    n = _counts(kops)
+    base_t = next(r[2] for r in rows if r[0] == "fedavg")
+    for (name, f1, t, e, mb), sec in zip(rows, secs):
+        say(f"[examples] baseline_duel {name} ({DUEL_ROUNDS} rounds): F1 "
+            f"{f1:.4f}, simulated {t:.4f} s per round (speedup "
+            f"{base_t / t:.4f}x), {e:.2f} J/r, {mb:.4f} MB/r; host "
+            f"{sec:.2f} s")
+    say(f"[examples] baseline_duel ({smi}): {len(rows)} methods in host "
+        f"{sum(secs):.2f} s ({sum(secs) / len(rows):.2f} s per method); "
+        f"launches {n} (expected none)")
+    if [r[0] for r in rows] != list(baseline_duel.METHODS) or any(
+            not (0.0 <= r[1] <= 1.0 and r[2] > 0) for r in rows):
+        fail(f"baseline_duel: bad rows {rows}")
+    if any(n.values()):
+        fail("baseline_duel launched a kernel off its path")
+
+
+def _recording_flash(fa_ops, keep):
+    """A stand-in for ``fa_ops.flash_attention`` that calls it and keeps
+    clones of the inputs, output and options of the calls whose index
+    ``keep`` accepts -> (stand-in, the kept calls)."""
+    kept, launch, turn = [], fa_ops.flash_attention, [0]
+
+    def call(q, k, v, q_pos, kv_pos, window=None, softcap=None):
+        out = launch(q, k, v, q_pos, kv_pos, window, softcap)
+        if keep(turn[0]):
+            kept.append(tuple(t.clone() for t in (q, k, v, q_pos, kv_pos,
+                                                  out)) + (window, softcap))
+        turn[0] += 1
+        return out
+    return call, kept
+
+
+def _held_calls(fa_ref, kept) -> float:
+    """Each kept bf16 call's output against the plain version in fp32 on
+    its inputs, at FA_TOL -> the largest abs error (fails past the bound)."""
+    atol, rtol = FA_TOL[True]
+    worst = 0.0
+    for i, (q, k, v, qp, kp, got, window, cap) in enumerate(kept):
+        want = fa_ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                          qp, kp, window, cap)
+        diff = (got.float() - want).abs()
+        worst = max(worst, diff.max().item())
+        if not got.isfinite().all() or (diff > atol
+                                         + rtol * want.abs()).any():
+            fail(f"serve_backbone: kept flash call {i} (filled "
+                 f"{int((kp >= 0).sum())}) disagrees with the plain "
+                 f"version: max abs err {diff.max().item():.3e}")
+    return worst
+
+
+def serve_backbone_path(torch, serve_backbone, kops, fa_ref, cfg, params,
+                        smi, expect_flash: bool) -> int:
+    """Phase 39 on FULL weights already on the card -> flash attention's
+    split-KV decode calls (each layer once per step when
+    ``expect_flash``, else none). The first and the last layer's calls are
+    kept and held against the plain version on their own inputs."""
+    fa_ops = kops[0]
+    B, P, steps = (SERVE_BACKBONE["batch"], SERVE_BACKBONE["prompt_len"],
+                   SERVE_BACKBONE["decode_steps"])
+    prompts = serve_backbone.draw_prompts(cfg, B, P, 0)
+    L = cfg.n_layers
+    call, kept = _recording_flash(fa_ops, lambda i: i % L in (0, L - 1))
+    launch = fa_ops.flash_attention
+    _reset_all(kops)
+    fa_ops.flash_attention = call
+    try:
+        res = serve_backbone.serve(cfg, params, prompts, steps)
+    finally:
+        fa_ops.flash_attention = launch
+    n = _counts(kops)
+    by_path = dict(fa_ops.PATH_LAUNCHES)
+    err = _held_calls(fa_ref, kept)
+    want = cfg.n_layers * (P + steps) if expect_flash else 0
+    say(f"[serve backbone] {cfg.arch} FULL ({cfg.n_layers} layers, "
+        f"{cfg.dtype}, attn {cfg.attn_impl}) B={B}, P={P} through the decode "
+        f"step, {steps} decode steps ({smi}): prefill {res['prefill_s']:.3f} s"
+        f" = {res['prefill_s'] / P * 1e3:.2f} ms per step, decode "
+        f"{res['decode_s']:.3f} s = {res['decode_s'] / steps * 1e3:.2f} ms "
+        f"per step, {res['tok_s']:.1f} tok/s; launches {n}, flash by path "
+        f"{by_path} (expected flash_attention {want} = "
+        + (f"{cfg.n_layers} layers x {P + steps} steps, all split-KV decode"
+           if expect_flash else "none: hymba's attention is the plain one")
+        + f"); sample {res['tokens'][0, :8].tolist()}; {len(kept)} calls "
+        f"of layers 0 and {L - 1} (filled 1 to {P + steps} of the ring) "
+        f"against the plain fp32 version: max abs err {err:.2e} (atol "
+        f"{FA_TOL[True][0]} + {FA_TOL[True][1]:.4g}*|plain|)")
+    if expect_flash and len(kept) != 2 * (P + steps):
+        fail(f"serve_backbone: kept {len(kept)} flash calls, expected "
+             f"{2 * (P + steps)}")
+    if (n["flash_attention"] != want or by_path["decode"] != want
+            or n["mdlora_matmul_multi"] or n["ssd"]):
+        fail(f"serve_backbone on {cfg.arch} did not launch the kernels its "
+             "path requires")
+    if tuple(res["tokens"].shape) != (B, steps):
+        fail(f"serve_backbone: tokens of shape {tuple(res['tokens'].shape)}")
+    return by_path["decode"]
+
+
+def serve_backbone_check(torch, serve_backbone, api, kops, tree_map,
+                         full) -> None:
+    """Phase 39's check: a float32 phi3-shaped model of 2 layers, tokens
+    with the kernel on the card equal the plain version's on the CPU. The
+    model is float32, so this holds the fp32 kernel; the bf16 split-KV
+    decode of the FULL run is held in ``serve_backbone_path``."""
+    cfg, cpu, gpu = _check_model(torch, api, tree_map, full)
+    prompts = serve_backbone.draw_prompts(
+        cfg, SERVE_BACKBONE["batch"], SERVE_BACKBONE["prompt_len"], 1)
+    _reset_all(kops)
+    got = serve_backbone.serve(cfg, gpu, prompts,
+                               SERVE_BACKBONE["decode_steps"])["tokens"]
+    n = _counts(kops)
+    want = serve_backbone.serve(cfg, cpu, prompts,
+                                SERVE_BACKBONE["decode_steps"])["tokens"]
+    say(f"[check] serve_backbone fp32 phi3-shaped model (2 layers, d 512; "
+        f"the fp32 kernel): "
+        f"tokens card == CPU: {bool((got == want).all())} "
+        f"({got.numel()} tokens); card launches {n}")
+    if n["flash_attention"] == 0 or not bool((got == want).all()):
+        fail("serve_backbone check: tokens differ card vs CPU, or the card "
+             "run skipped the flash kernel")
+
+
+def fleet_sim(torch, fleet_scale_sim, smi) -> None:
+    """Phase 40: the fleet-scale system simulation at the README's sizes."""
+    for n, K, flushes, churn, arrival, jitter in FLEET_SIMS:
+        t0 = time.perf_counter()
+        run = fleet_scale_sim.build(n, K, churn, arrival, jitter, 0, "cuda")
+        built = time.perf_counter() - t0
+        s = fleet_scale_sim.simulate(run, flushes)
+        say(f"[fleet sim] N={n:,d} K={K} {flushes} flushes, churn {churn}, "
+            f"arrivals {arrival}, jitter {jitter} ({smi}; host numpy): "
+            f"built in {built:.2f} s; {s['completions']:,d} completions, "
+            f"wall {s['wall_s']:.3f} s = {s['events_per_s']:,.0f} events/s, "
+            f"{s['flushes_per_s']:.2f} flushes/s; simulated "
+            f"{s['sim_time_s']:.4f} s, energy {s['energy_j']:.1f} J, upload "
+            f"{s['upload_mb']:.2f} MB; staleness mean "
+            f"{s['staleness_mean']:.2f} p50 {s['staleness_p50']:.2f} p95 "
+            f"{s['staleness_p95']:.2f} max {s['staleness_max']:.2f}; "
+            f"per-client updates mean {s['updates_mean']:.4f} max "
+            f"{s['updates_max']}, idle {s['idle_frac']:.4f}; alive "
+            f"{s['alive_frac']:.4f}")
+        if (s["flushes"] != flushes or s["completions"] < flushes * K
+                or not math.isfinite(s["sim_time_s"])):
+            fail(f"fleet sim N={n}: {s}")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3102,7 +3336,7 @@ def main() -> None:
     import torch
 
     t_start = time.perf_counter()
-    card(torch)
+    smi = card(torch)
     dryrun_child = start_dryrun_child()
     from repro_torch.configs import get_arch
     from repro_torch.kernels import runtime
@@ -3114,8 +3348,9 @@ def main() -> None:
     from repro_torch.kernels.mdlora.autograd import fused_block_lora
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
-    from repro_torch.launch import (serve, serving_engine, step_fns,
-                                    train_async_har, train_relief_har)
+    from repro_torch.launch import (serve, serve_backbone, serving_engine,
+                                    step_fns, train_async_har,
+                                    train_relief_har)
     from repro_torch.models import api, moe, ssm
     from repro_torch.tree import tree_map
 
@@ -3156,10 +3391,17 @@ def main() -> None:
     launches["flash_attention_prefill"] = by_path["prefill"]
     launches["mdlora_matmul_multi"] = phase(
         "engine", serve_engine, torch, serve, kops, full, params)
+    phase("serve backbone kernel (flash)", check_flash, torch, fa_ops,
+          fa_ref, SERVE_BACKBONE_FA_CASES)
+    launches["flash_attention"] += phase(
+        "serve backbone", serve_backbone_path, torch, serve_backbone, kops,
+        fa_ref, full, params, smi, True)
     del params
     torch.cuda.empty_cache()
     phase("serve check", serve_check, torch, serve, serving_engine, api,
           kops, tree_map, full)
+    phase("serve backbone check", serve_backbone_check, torch,
+          serve_backbone, api, kops, tree_map, full)
     results["ssd"] = phase("ssd kernel", check_ssd, torch, ssd_ops, ssd_ref,
                            ssm, counts)["mamba2"]
     launches["ssd"] = 0
@@ -3175,6 +3417,8 @@ def main() -> None:
             launches["mdlora_matmul_multi"] += phase(
                 f"{arch} engine", hymba_engine, torch, serve, kops, cfg,
                 params)
+            phase(f"{arch} serve backbone", serve_backbone_path, torch,
+                  serve_backbone, kops, fa_ref, cfg, params, smi, False)
         del params
         torch.cuda.empty_cache()
     phase("recurrent check", recurrent_check, torch, serve, serving_engine,
@@ -3254,6 +3498,10 @@ def main() -> None:
                          ref, md_ops, md_ref).items():
         launches[name] += n
     phase("dryrun", dryrun_path, dryrun_child, measured)
+    from repro_torch.launch import baseline_duel, fleet_scale_sim, quickstart
+    phase("examples sync", examples_sync, torch, ops, md_ops, quickstart,
+          baseline_duel, smi)
+    phase("fleet sim", fleet_sim, torch, fleet_scale_sim, smi)
     lines = []
     for name, replaces in KERNELS.items():
         lines.append(dict(

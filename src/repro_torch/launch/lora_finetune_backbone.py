@@ -5,6 +5,12 @@ It raises unless the loss falls.
 
     python -m repro_torch.launch.lora_finetune_backbone --arch gemma2-27b \\
         --steps 30 [--device cpu]
+
+Kept deviations from the reference's example: the weights are drawn from
+``--seed`` by a ``torch.Generator`` (the reference's JAX draws cannot be
+reproduced), and ``--ckpt-dir`` defaults to ``repro_torch_lora_ft_ckpt``
+under the temporary directory, not the reference's fixed
+``lora_ft_ckpt``.
 """
 from __future__ import annotations
 

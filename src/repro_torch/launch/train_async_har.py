@@ -13,6 +13,11 @@ model, and the last line gives the simulated wall-clock speedup over it.
     python -m repro_torch.launch.train_async_har [--rounds 50] [--buffer 4]
         [--staleness-exp 0.5] [--hetero 100] [--codec none|int8]
         [--backbone b1|b2] [--small] [--device cuda]
+
+Kept deviation from the reference's ``examples/train_async_har.py``, whose
+scenario takes the narrow Backbone 1 (``small_model=True``): the default
+here is the full-width Backbone 1; ``--small`` builds exactly the
+reference's model, fleet and ``AsyncFedConfig``.
 """
 from __future__ import annotations
 
