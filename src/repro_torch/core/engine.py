@@ -24,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import aggregation as AG
 from repro_torch.core import allocation as AL
 from repro_torch.core import divergence as DV
@@ -107,15 +108,22 @@ def make_local_update(task: MMTask, fed: FedConfig, prox_mu: float):
         tr, opt = start, adam_init(start)
         losses = []
         for s in range(batches["x"].shape[1]):
-            grads, loss = grad_fn(tr, batches["x"][:, s], batches["y"][:, s],
-                                  mmasks)
-            if prox_mu > 0.0:
-                grads = tree_map(lambda g, t, t0: g + prox_mu * (t - t0),
-                                 grads, tr, start)
-            grads = mdlora.group_gate_tree(layout, grads, gates)
-            if rank_gate is not None:
-                grads = tree_map(torch.mul, grads, rank_gate)
-            tr, opt = adam_update(tr, grads, opt, lr)
+            with trace.span("fed.local_step", step=s):
+                with trace.span("local.grad") as sp:
+                    grads, loss = grad_fn(tr, batches["x"][:, s],
+                                          batches["y"][:, s], mmasks)
+                    if sp is not trace.OFF:  # the (client, group) work done
+                        sp.attrs["computed"] = float(
+                            layout.rows_per_group(grads) @ layout.flops)
+                with trace.span("local.adam"):
+                    if prox_mu > 0.0:
+                        grads = tree_map(
+                            lambda g, t, t0: g + prox_mu * (t - t0), grads,
+                            tr, start)
+                    grads = mdlora.group_gate_tree(layout, grads, gates)
+                    if rank_gate is not None:
+                        grads = tree_map(torch.mul, grads, rank_gate)
+                    tr, opt = adam_update(tr, grads, opt, lr)
             losses.append(loss)
         delta = tree_map(lambda a, b: a.float() - b.float(), tr, start)
         delta = mdlora.group_gate_tree(layout, delta, gates)
@@ -380,6 +388,10 @@ class FedRun:
     # -- one round ------------------------------------------------------------
 
     def round(self, dataset) -> dict:
+        with trace.span("fed.round", round=self.state.round + 1):
+            return self._round(dataset)
+
+    def _round(self, dataset) -> dict:
         task, strategy, fleet, fed = (self.task, self.strategy, self.fleet,
                                       self.fed)
         layout, state, dev = task.layout, self.state, self.device
@@ -397,59 +409,75 @@ class FedRun:
             if not participating.any():
                 participating[state.rng.integers(N)] = True
 
-        # --- server: allocation
-        S, _ = allocate(strategy, state, task, fleet, fed, layout.flops)
-        S &= participating[:, None]
+        with trace.span("fed.allocate"):
+            S, _ = allocate(strategy, state, task, fleet, fed, layout.flops)
+            S &= participating[:, None]
 
         # --- clients: local training
-        batches = self._round_batches(dataset)
+        with trace.span("fed.draw"):
+            batches = self._round_batches(dataset)
         start = self._start_trainable()
         trained = torch.as_tensor(S, **f32)
         mmasks = torch.as_tensor(fleet.modality_mask, **f32)
-        deltas, losses = self.local_update(start, batches, mmasks, trained,
-                                           fed.lr, self.rank_gate)
+        # ``selected``: the gradient work per step that the allocation asks
+        # for, against each ``local.grad``'s ``computed``
+        with trace.span("fed.local_update") as sp:
+            if sp is not trace.OFF:
+                sp.attrs["selected"] = float((S @ layout.flops).sum())
+            deltas, losses = self.local_update(start, batches, mmasks,
+                                               trained, fed.lr,
+                                               self.rank_gate)
 
-        # --- server: aggregation
-        if strategy.agg == "cohort":
-            W = AG.cohort_weights(layout, trained, mmasks)
-        elif strategy.agg in ("dimension", "helora"):
-            # cohort-style masked means without Eq. 4's B-weighting
-            W = AG.cohort_weights(layout, trained, torch.ones_like(mmasks))
-        else:  # fedavg: every participant averaged into every group
-            W = AG.fedavg_weights(N, G, torch.as_tensor(participating, **f32))
-        if strategy.agg == "helora":
-            new_trainable = self._helora_aggregate(deltas, W)
-        else:
-            new_trainable = AG.aggregate(layout, state.trainable, deltas, W,
-                                         fed.server_lr)
-        # personalized leaves are NEVER aggregated into the global model
-        new_trainable = tree_map(lambda old, new, pers: old if pers else new,
-                                 state.trainable, new_trainable,
-                                 self.personal_mask)
-        self._update_personal(start, deltas, participating)
+        with trace.span("fed.aggregate"):
+            if strategy.agg == "cohort":
+                W = AG.cohort_weights(layout, trained, mmasks)
+            elif strategy.agg in ("dimension", "helora"):
+                # cohort-style masked means without Eq. 4's B-weighting
+                W = AG.cohort_weights(layout, trained, torch.ones_like(mmasks))
+            else:  # fedavg: every participant averaged into every group
+                W = AG.fedavg_weights(N, G,
+                                      torch.as_tensor(participating, **f32))
+            if strategy.agg == "helora":
+                new_trainable = self._helora_aggregate(deltas, W)
+            else:
+                new_trainable = AG.aggregate(layout, state.trainable, deltas,
+                                             W, fed.server_lr)
+            # personalized leaves are NEVER aggregated into the global model
+            new_trainable = tree_map(
+                lambda old, new, pers: old if pers else new, state.trainable,
+                new_trainable, self.personal_mask)
+            self._update_personal(start, deltas, participating)
 
         # --- divergence tracking (Eq. 5-6) on possession cohorts
-        cohort = torch.as_tensor(layout.accessible(fleet.modality_mask)
-                                 & participating[:, None] & S, **f32)
-        d = DV.group_divergence(layout, deltas, cohort).cpu().numpy()
-        # fp32, as the reference's jnp update makes it
-        state.dbar = DV.ema_update(state.dbar.astype(np.float32), d,
-                                   fed.gamma)
-        per_client_norms = mdlora.group_norms(layout, deltas,
-                                              batch_dims=1).cpu().numpy()
-        mag = (per_client_norms * S).sum(0) / np.maximum(S.sum(0), 1)
-        touched = S.any(0)
-        state.mag_ema[touched] = (0.5 * state.mag_ema + 0.5 * mag)[touched]
+        with trace.span("fed.divergence"):
+            cohort = torch.as_tensor(layout.accessible(fleet.modality_mask)
+                                     & participating[:, None] & S, **f32)
+            d = DV.group_divergence(layout, deltas, cohort)
+            with trace.wait("divergence.to_host"):
+                d = d.cpu().numpy()
+            # fp32, as the reference's jnp update makes it
+            state.dbar = DV.ema_update(state.dbar.astype(np.float32), d,
+                                       fed.gamma)
+            norms = mdlora.group_norms(layout, deltas, batch_dims=1)
+            with trace.wait("norms.to_host"):
+                per_client_norms = norms.cpu().numpy()
+            mag = (per_client_norms * S).sum(0) / np.maximum(S.sum(0), 1)
+            touched = S.any(0)
+            state.mag_ema[touched] = (0.5 * state.mag_ema + 0.5 * mag)[touched]
 
         # --- system simulation (time / energy / comm)
-        trained_fl, fixed_fl = simulated_flops(task, fed, S)
-        upload = (np.asarray(S, np.float64) @ layout.sizes) * 4.0
-        cost = T.simulate_round(fleet, participating, trained_fl, fixed_fl,
-                                upload, fed.t_overhead, fed.utilization)
+        with trace.span("fed.simulate"):
+            trained_fl, fixed_fl = simulated_flops(task, fed, S)
+            upload = (np.asarray(S, np.float64) @ layout.sizes) * 4.0
+            cost = T.simulate_round(fleet, participating, trained_fl,
+                                    fixed_fl, upload, fed.t_overhead,
+                                    fed.utilization)
 
         state.trainable = new_trainable
         state.round += 1
-        rec = {"round": state.round, "loss": float(losses.mean()),
+        with trace.wait("loss.to_host"):
+            loss = float(losses.mean())
+        rec = {"round": state.round, "loss": loss,
                **cost.as_dict(), "selected_frac": float(S.mean()),
                "divergence": d}
         for key in ("round", "loss", "round_time_s", "upload_mb",

@@ -85,6 +85,23 @@ class GroupLayout:
                 out[:, g] = mm[:, self.modality[g]]
         return out
 
+    def rows_per_group(self, tree: Any) -> np.ndarray:
+        """[G] rows along axis 0 (clients, for a stacked tree) of each
+        group's leaves in ``tree``, 0 for a group it holds no leaf of; read
+        from the shapes alone."""
+        rows = np.zeros(self.G, np.int64)
+        for p, leaf in leaves_with_path(tree):
+            if p == self.fusion_a_path:
+                gids = [g for _, _, g in self.fusion_rows]
+            elif p in self.leaf_axis0_groups:
+                gids = self.leaf_axis0_groups[p]
+            elif p in self.leaf_group:
+                gids = [self.leaf_group[p]]
+            else:
+                continue
+            rows[gids] = np.maximum(rows[gids], leaf.shape[0])
+        return rows
+
     def row_group_vector(self, D: int) -> np.ndarray:
         """[D] group id per row of the fusion leaf."""
         rg = np.zeros(D, np.int32)

@@ -26,6 +26,7 @@ from repro_torch.kernels.cohort_agg import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "cohort_agg.cu"
 LAUNCHES = {"cohort_agg_divergence": 0, "cohort_agg_divergence_quant": 0}
+reset_launches = functools.partial(runtime.reset_counts, LAUNCHES)
 # the kernel's geometry (checked against the source's when it loads):
 # threads per block, resident blocks per SM; at most MAX_LANES client lanes
 # and at least MIN_LANE_CLIENTS clients per lane and split
@@ -34,11 +35,6 @@ MAX_LANES, MIN_LANE_CLIENTS = 8, 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 @functools.cache

@@ -32,6 +32,8 @@ from repro_torch.kernels.flash_attention import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LAUNCHES = {"flash_attention": 0}
 PATH_LAUNCHES = {"fp32": 0, "prefill": 0, "decode": 0}
+reset_launches = functools.partial(runtime.reset_counts, LAUNCHES,
+                                   PATH_LAUNCHES)
 DECODE_ROWS = 16  # bf16 calls with S*G at or below this take split-KV
 PREFILL_ROWS = 64  # the fewest folded rows a bf16 prefill block owns
 MAX_SPLITS = 32
@@ -39,12 +41,6 @@ MIN_SPLIT_TILES = 3  # 64-key tiles per chunk, at least
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
-    for path in PATH_LAUNCHES:
-        PATH_LAUNCHES[path] = 0
 
 
 def plan_splits(q_shape, T: int) -> int:

@@ -31,6 +31,7 @@ from repro_torch.kernels.mdlora import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mdlora_multi.cu"
 FUSED_SOURCE = SOURCE.with_name("mdlora.cu")
 LAUNCHES = {"mdlora_matmul": 0, "mdlora_matmul_multi": 0}
+reset_launches = functools.partial(runtime.reset_counts, LAUNCHES)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,11 +40,6 @@ _I = ctypes.c_int
 # blocks per SM
 TILE_F, STAGE_K, U_LEN, BLOCKS_PER_SM = 64, 64, 128, 2
 MIN_STAGES = 4  # per split, where D allows: fewer partials to add
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 @functools.cache

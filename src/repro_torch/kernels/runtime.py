@@ -120,6 +120,13 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
+def reset_counts(*counters: dict[str, int]) -> None:
+    """Set every count of the ``counters`` dicts to 0 (each ops module's
+    ``reset_launches``)."""
+    for d in counters:
+        d.update(dict.fromkeys(d, 0))
+
+
 def refuse_backward(op: str, *tensors: torch.Tensor | None,
                     hint: str = "") -> None:
     """Raise when autograd would record ``op``'s kernel launch: grad mode is

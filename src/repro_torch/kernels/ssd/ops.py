@@ -22,14 +22,11 @@ from repro_torch.kernels.ssd import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 LAUNCHES = {"ssd": 0}
+reset_launches = functools.partial(runtime.reset_counts, LAUNCHES)
 MAX_DIM = 256  # chunk, p and n each; shared memory may bind first
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def reset_launches() -> None:
-    LAUNCHES["ssd"] = 0
 
 
 @functools.cache

@@ -33,6 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import runtime
 from repro_torch.kernels.mdlora import block_row_mask
@@ -176,12 +177,11 @@ class ServingEngine:
         self.pos = np.zeros(batch_slots, np.int32)
         self.remaining = np.zeros(batch_slots, np.int32)
         self.adapter_idx = np.zeros(batch_slots, np.int32)
-        self.rids: list[str | None] = [None] * batch_slots
+        self.requests: list[Request | None] = [None] * batch_slots
         self.cur = np.zeros((batch_slots, 1), np.int32)
         self.outputs: dict[str, list[int]] = {}
         self.latency: dict[str, float] = {}
         self.step_times: list[float] = []
-        self._submit_times: dict[str, float] = {}
         # zeroed single-row cache; every admission prefills a clone of it
         # (caches are written in place)
         self._fresh_row = api.init_caches(cfg, 1, max_len, per_row_pos=True,
@@ -189,79 +189,90 @@ class ServingEngine:
 
     def submit(self, req: Request) -> None:
         req.submit_t = time.perf_counter()
-        self._submit_times[req.rid] = req.submit_t
         self.queue.append(req)
         self.outputs[req.rid] = []
 
     # -- admission ---------------------------------------------------------
 
     def _admit(self, slot: int, req: Request) -> None:
-        aslot = self.registry.slot(req.adapter)
-        tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32,
-                                 device=self.device)[None]
-        lora = tree_map(lambda x: x[:, aslot], self.registry.store)
-        logits, small = api.prefill_with_cache(
-            {"base": self.params["base"], "lora": lora},
-            self.cfg, _clone(self._fresh_row), tokens,
-            fusion_mask=self.registry.fusion_masks[aslot][None])
-        # the fresh row overwrites the whole slot (pos = -1 past the
-        # prompt; the conv and SSM states of a recurrent family too), so a
-        # recycled slot keeps nothing of its last occupant
-        tree_map(lambda big, row: big[:, slot].copy_(row[:, 0]), self.caches,
-                 small)
-        first = int(_greedy(logits)[0])
-        self.active[slot] = True
-        self.pos[slot] = len(req.prompt)
-        self.remaining[slot] = req.max_new_tokens
-        self.adapter_idx[slot] = aslot
-        self.rids[slot] = req.rid
-        self.cur[slot, 0] = first
-        self.outputs[req.rid].append(first)
-        self.remaining[slot] -= 1
-        if self.remaining[slot] <= 0:
-            self._retire(slot)
+        with trace.span("engine.admit") as sp:
+            if sp is not trace.OFF:
+                sp.attrs.update(rid=req.rid, prompt_len=len(req.prompt),
+                                adapter=req.adapter)
+            aslot = self.registry.slot(req.adapter)
+            with trace.span("admit.prefill"):
+                tokens = torch.as_tensor(np.asarray(req.prompt),
+                                         dtype=torch.int32,
+                                         device=self.device)[None]
+                lora = tree_map(lambda x: x[:, aslot], self.registry.store)
+                logits, small = api.prefill_with_cache(
+                    {"base": self.params["base"], "lora": lora},
+                    self.cfg, _clone(self._fresh_row), tokens,
+                    fusion_mask=self.registry.fusion_masks[aslot][None])
+                # the fresh row overwrites the whole slot (pos = -1 past the
+                # prompt; the conv and SSM states of a recurrent family
+                # too), so a recycled slot keeps nothing of its last occupant
+                tree_map(lambda big, row: big[:, slot].copy_(row[:, 0]),
+                         self.caches, small)
+            with trace.wait("admit.first_token"):
+                first = int(_greedy(logits)[0])
+            self.active[slot] = True
+            self.pos[slot] = len(req.prompt)
+            self.remaining[slot] = req.max_new_tokens
+            self.adapter_idx[slot] = aslot
+            self.requests[slot] = req
+            self.cur[slot, 0] = first
+            self.outputs[req.rid].append(first)
+            self.remaining[slot] -= 1
+            if self.remaining[slot] <= 0:
+                self._retire(slot)
 
     def _retire(self, slot: int) -> None:
-        rid = self.rids[slot]
-        self.latency[rid] = (time.perf_counter()
-                             - self._submit_times.get(rid, 0.0))
+        req = self.requests[slot]
+        self.latency[req.rid] = time.perf_counter() - req.submit_t
         self.active[slot] = False
-        self.rids[slot] = None
+        self.requests[slot] = None
 
     # -- decode loop -------------------------------------------------------
 
     def _decode(self) -> np.ndarray:
         dev = self.device
-        aidx = torch.as_tensor(self.adapter_idx, device=dev)
-        logits, self.caches = api.decode_step(
-            {"base": self.params["base"], "lora": self.registry.store},
-            self.cfg, self.caches, torch.as_tensor(self.cur, device=dev),
-            torch.as_tensor(self.pos, device=dev), adapter_idx=aidx,
-            fusion_mask=self.registry.fusion_masks[aidx],
-            lora_impl=self.lora_impl)
-        return _greedy(logits)
+        with trace.span("decode.issue"):
+            aidx = torch.as_tensor(self.adapter_idx, device=dev)
+            logits, self.caches = api.decode_step(
+                {"base": self.params["base"], "lora": self.registry.store},
+                self.cfg, self.caches, torch.as_tensor(self.cur, device=dev),
+                torch.as_tensor(self.pos, device=dev), adapter_idx=aidx,
+                fusion_mask=self.registry.fusion_masks[aidx],
+                lora_impl=self.lora_impl)
+        with trace.wait("decode.next_tokens"):
+            return _greedy(logits)
 
     def step(self) -> int:
         """Admit what fits, run one batched decode step; -> #active rows."""
-        for slot in range(self.B):
-            if not self.active[slot] and self.queue:
-                self._admit(slot, self.queue.pop(0))
-        if not self.active.any():
-            return 0
-        t0 = time.perf_counter()
-        nxt = self._decode()  # on the host: the step has finished
-        self.step_times.append(time.perf_counter() - t0)
-        for slot in range(self.B):
-            if not self.active[slot]:
-                continue
-            self.pos[slot] += 1
-            self.cur[slot, 0] = nxt[slot]
-            self.outputs[self.rids[slot]].append(int(nxt[slot]))
-            self.remaining[slot] -= 1
-            if (self.remaining[slot] <= 0
-                    or self.pos[slot] >= self.max_len - 1):
-                self._retire(slot)
-        return int(self.active.sum())
+        with trace.span("engine.step"):
+            for slot in range(self.B):
+                if not self.active[slot] and self.queue:
+                    self._admit(slot, self.queue.pop(0))
+            if not self.active.any():
+                return 0
+            t0 = time.perf_counter()
+            with trace.span("engine.decode") as sp:
+                if sp is not trace.OFF:
+                    sp.attrs["rows"] = int(self.active.sum())
+                nxt = self._decode()  # on the host: the step has finished
+            self.step_times.append(time.perf_counter() - t0)
+            for slot in range(self.B):
+                if not self.active[slot]:
+                    continue
+                self.pos[slot] += 1
+                self.cur[slot, 0] = nxt[slot]
+                self.outputs[self.requests[slot].rid].append(int(nxt[slot]))
+                self.remaining[slot] -= 1
+                if (self.remaining[slot] <= 0
+                        or self.pos[slot] >= self.max_len - 1):
+                    self._retire(slot)
+            return int(self.active.sum())
 
     def run(self) -> dict:
         """Drain queue + active rows; -> outputs and timing stats."""

@@ -1425,3 +1425,62 @@ def test_multi_kernel_under_every_candidate_plan(dev, bf16):
         got = md_ops.mdlora_matmul_multi(x, w0, a, b, idx, None, 2.0,
                                          plan=plan)
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+_CLOCK_PROBE = """
+import json, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch import trace
+dev = torch.device("cuda")
+torch.cuda._sleep(1000)  # the sleep kernel's first launch, untraced
+torch.cuda.synchronize(dev)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with trace.span("issue") as issue:
+        torch.cuda._sleep(20_000_000)  # cycles: about 10 ms
+    with trace.wait("sync") as sync:
+        torch.cuda.synchronize(dev)
+print(json.dumps({"issue": [issue.start, issue.end],
+                  "sync": [sync.start, sync.end],
+                  "device": [[e.name(), e.start_ns(), e.end_ns()]
+                             for e in prof.profiler.kineto_results.events()
+                             if e.device_type() == DeviceType.CUDA]}))
+"""
+
+
+def test_trace_spans_share_the_device_trace_clock(dev):
+    """A span issues a sleep kernel and a wait synchronises, under the
+    profiler with CUDA activity only, in a fresh process, as the benchmark
+    traces (in a process that has run profiler sessions with CPU activity,
+    a CUDA-only session has recorded no device event): the kernel's device
+    interval lies between the span's start and the wait's end, to 50 us, so
+    the program's spans and the device trace share one clock."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = subprocess.run([sys.executable, "-c", _CLOCK_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    (i0, i1), (w0, w1) = got["issue"], got["sync"]
+    for name, s0, s1 in got["device"]:
+        print(f"[clock] device event {name}: {s0 - i0} ns to {s1 - i0} ns "
+              "from the span's start")
+    ev = [e for e in got["device"] if "spin_kernel" in e[0]]
+    assert len(ev) == 1, got["device"]
+    _, k0, k1 = ev[0]
+    print(f"[clock] {ev[0][0]}: starts {(k0 - i0) / 1e3:.1f} us after the "
+          f"span's start ({(i1 - i0) / 1e3:.1f} us long), ends "
+          f"{(w1 - k1) / 1e3:.1f} us before the wait's end; kernel "
+          f"{(k1 - k0) / 1e3:.1f} us, wait {(w1 - w0) / 1e3:.1f} us")
+    slack = 50_000
+    assert i0 - slack <= k0 < k1 <= w1 + slack
+    # the host waited for the kernel, and woke within 0.5 ms of its end
+    # (23-62 us on an H100 80GB HBM3)
+    assert w0 < k1 and w1 - k1 <= 10 * slack
