@@ -56,9 +56,9 @@ import torch
 from repro_torch import dist
 from repro_torch.core import aggregation as AG
 from repro_torch.core import mdlora
-from repro_torch.core.engine import (AllocPlan, FedConfig, _rank_gates,
-                                     allocate, allocate_rows,
-                                     draw_client_batches, make_local_update,
+from repro_torch.core.engine import (AllocPlan, FedConfig, ResidentWindows,
+                                     _rank_gates, allocate, allocate_rows,
+                                     hold_windows, make_local_update,
                                      plan_allocation, scenario_fed_kwargs,
                                      simulated_flops)
 from repro_torch.core.strategies import AsyncStrategy
@@ -416,6 +416,7 @@ class AsyncFedRun(_ServerFlushMixin):
     # fleet-static allocation inputs (None for alloc="random", which redraws
     # fleet-shaped noise per dispatch through allocate() to keep its stream)
     plan: AllocPlan | None = None
+    windows: ResidentWindows | None = None  # built by the first draw
 
     @classmethod
     def create(cls, task: MMTask, trainable0: Any, strategy: AsyncStrategy,
@@ -457,8 +458,8 @@ class AsyncFedRun(_ServerFlushMixin):
         fault = self.fx.on_dispatch(clients) if self.fx is not None else None
 
         steps = fed.local_epochs * fed.steps_per_epoch
-        batches = draw_client_batches(state.rng, dataset, clients, steps,
-                                      fed.batch_size, dev)
+        self.windows = hold_windows(self.windows, dataset, dev)
+        batches = self.windows.draw(state.rng, clients, steps, fed.batch_size)
         start = tree_map(lambda g: g.expand((K,) + g.shape), state.trainable)
         gates = torch.as_tensor(S, dtype=torch.float32, device=dev)
         mmasks = torch.as_tensor(live_mm, dtype=torch.float32, device=dev)
@@ -637,6 +638,7 @@ class VectorizedAsyncFedRun(_ServerFlushMixin):
             self._ring = tree_map(
                 lambda x: x.expand((R,) + x.shape).clone(), proto)
         self._churn_rng = np.random.default_rng([fed.seed, 0x5EED])
+        self.windows: ResidentWindows | None = None  # built by the first draw
 
     @classmethod
     def create(cls, task: MMTask, trainable0: Any, strategy: AsyncStrategy,
@@ -715,8 +717,8 @@ class VectorizedAsyncFedRun(_ServerFlushMixin):
         fed, state, dev = self.fed, self.state, self.device
         B = len(idx)
         steps = fed.local_epochs * fed.steps_per_epoch
-        batches = draw_client_batches(state.rng, dataset, idx, steps,
-                                      fed.batch_size, dev)
+        self.windows = hold_windows(self.windows, dataset, dev)
+        batches = self.windows.draw(state.rng, idx, steps, fed.batch_size)
         start = tree_map(lambda g: g.expand((B,) + g.shape), state.trainable)
         f32 = dict(dtype=torch.float32, device=dev)
         deltas, losses = self.local_update(
@@ -798,17 +800,11 @@ class VectorizedAsyncFedRun(_ServerFlushMixin):
         start = tree_map(lambda x: x[slots], self._ring)
 
         steps = fed.local_epochs * fed.steps_per_epoch
-        xs, ys = [], []
-        for c, t in zip(ids, tickets):  # counter-based draws: order-free
-            r = np.random.default_rng([fed.seed, int(c), int(t)])
-            src = int(c) % len(dataset.train_y)
-            bidx = r.integers(0, len(dataset.train_y[src]),
-                              size=(steps, fed.batch_size))
-            xs.append(dataset.train_x[src][bidx])
-            ys.append(dataset.train_y[src][bidx])
-        batches = {"x": torch.as_tensor(np.stack(xs), device=dev),
-                   "y": torch.as_tensor(np.stack(ys), dtype=torch.int64,
-                                        device=dev)}
+        self.windows = win = hold_windows(self.windows, dataset, dev)
+        batches = win.gather(np.stack([  # counter-based draws: order-free
+            win.rows(np.random.default_rng([fed.seed, int(c), int(t)]),
+                     int(c), steps, fed.batch_size)
+            for c, t in zip(ids, tickets)]))
         f32 = dict(dtype=torch.float32, device=dev)
         deltas, losses = self.local_update(
             start, batches, torch.as_tensor(mmask_rows, **f32),

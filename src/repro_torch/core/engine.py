@@ -7,7 +7,8 @@ aggregation: cohort-wise masked means (Eq. 3-4) + divergence update (Eq.
 5-6). Client participation is a per-round mask, so any dropout pattern
 aggregates well (an empty cohort freezes its block). The asynchronous
 runtime (``async_engine.py``) reuses the local update, the batch draws and
-the allocation.
+the allocation. The training windows stay on the run's device for the run
+(``ResidentWindows``): a draw copies its row indices there and gathers.
 
 Local training is ``torch.func.vmap(torch.func.grad_and_value(loss))`` over
 the client axis, with a Python loop over the E x steps Adam steps; the
@@ -140,21 +141,58 @@ def make_local_update(task: MMTask, fed: FedConfig, prox_mu: float):
 # ---------------------------------------------------------------------------
 
 
-def draw_client_batches(rng: np.random.Generator, dataset, clients,
-                        steps: int, batch_size: int,
-                        device: torch.device | str) -> dict:
-    """Stacked local-training batches for ``clients`` (one rng.integers call
-    per client, in iteration order)."""
-    xs, ys = [], []
-    for n in clients:
-        src = n % len(dataset.train_y)
-        idx = rng.integers(0, len(dataset.train_y[src]),
-                           size=(steps, batch_size))
-        xs.append(dataset.train_x[src][idx])
-        ys.append(dataset.train_y[src][idx])
-    return {"x": torch.as_tensor(np.stack(xs), device=device),
-            "y": torch.as_tensor(np.stack(ys), dtype=torch.int64,
-                                 device=device)}
+class ResidentWindows:
+    """Every subject's training windows on the run's device, for the run:
+    ``x`` [sum n, T, C] in the windows' dtype and ``y`` [sum n] int64, the
+    subjects end to end, with ``offsets`` and ``counts`` [subjects] on the
+    host. A draw copies only its row indices to the device and gathers the
+    batches there. Built from anything with ``train_x`` / ``train_y`` lists;
+    it holds that dataset, so a run rebuilds it only for another one
+    (``hold_windows``)."""
+
+    def __init__(self, dataset, device: torch.device | str):
+        self.dataset = dataset
+        self.counts = np.array([len(y) for y in dataset.train_y], np.int64)
+        self.offsets = np.cumsum(self.counts) - self.counts
+        self.x = torch.as_tensor(np.concatenate(dataset.train_x),
+                                 device=device)
+        self.y = torch.as_tensor(np.concatenate(dataset.train_y),
+                                 dtype=torch.int64, device=device)
+
+    @property
+    def nbytes(self) -> int:
+        return self.x.nbytes + self.y.nbytes
+
+    def rows(self, rng: np.random.Generator, client: int, steps: int,
+             batch_size: int) -> np.ndarray:
+        """[steps, batch_size] rows of ``x`` for ``client``: one
+        ``rng.integers`` call over the windows of its subject, ``client %
+        subjects``."""
+        src = client % len(self.counts)
+        return self.offsets[src] + rng.integers(
+            0, self.counts[src], size=(steps, batch_size))
+
+    def draw(self, rng: np.random.Generator, clients, steps: int,
+             batch_size: int) -> dict:
+        """Stacked local-training batches for ``clients`` (one rng.integers
+        call per client, in iteration order)."""
+        return self.gather(np.stack([self.rows(rng, n, steps, batch_size)
+                                     for n in clients]))
+
+    def gather(self, rows: np.ndarray) -> dict:
+        """{"x": [*rows.shape, T, C], "y": [*rows.shape] int64}, on the
+        device: one copy of ``rows``, then a gather of each."""
+        idx = torch.as_tensor(rows, device=self.x.device)
+        return {"x": self.x[idx], "y": self.y[idx]}
+
+
+def hold_windows(held: ResidentWindows | None, dataset,
+                 device: torch.device | str) -> ResidentWindows:
+    """``held`` if it was built from ``dataset``, else a new copy of
+    ``dataset``'s windows on ``device``."""
+    if held is not None and held.dataset is dataset:
+        return held
+    return ResidentWindows(dataset, device)
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +382,7 @@ class FedRun:
     personal_mask: Any
     history: dict
     proto: Any  # trainable prototype (zero-round shapes/dtypes)
+    windows: ResidentWindows | None = None  # built by the first draw
 
     @classmethod
     def create(cls, task: MMTask, trainable0: Any, strategy: Strategy,
@@ -380,10 +419,10 @@ class FedRun:
         the run's rng (the round draws through this, as does an instrumented
         caller such as ``experiments.motivation``)."""
         fed = self.fed
-        return draw_client_batches(
-            self.state.rng, dataset, range(self.fleet.N),
-            fed.local_epochs * fed.steps_per_epoch, fed.batch_size,
-            self.device)
+        self.windows = hold_windows(self.windows, dataset, self.device)
+        return self.windows.draw(self.state.rng, range(self.fleet.N),
+                                 fed.local_epochs * fed.steps_per_epoch,
+                                 fed.batch_size)
 
     # -- one round ------------------------------------------------------------
 
@@ -414,8 +453,15 @@ class FedRun:
             S &= participating[:, None]
 
         # --- clients: local training
-        with trace.span("fed.draw"):
+        with trace.span("fed.draw") as sp:
+            held = self.windows
             batches = self._round_batches(dataset)
+            if sp is not trace.OFF:  # the row indices (int64, one a label)
+                # and, on a build, the windows
+                built = self.windows is not held
+                sp.attrs["built"] = int(built)
+                sp.attrs["h2d_bytes"] = batches["y"].nbytes + (
+                    self.windows.nbytes if built else 0)
         start = self._start_trainable()
         trained = torch.as_tensor(S, **f32)
         mmasks = torch.as_tensor(fleet.modality_mask, **f32)

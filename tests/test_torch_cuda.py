@@ -1484,3 +1484,81 @@ def test_trace_spans_share_the_device_trace_clock(dev):
     # the host waited for the kernel, and woke within 0.5 ms of its end
     # (23-62 us on an H100 80GB HBM3)
     assert w0 < k1 and w1 - k1 <= 10 * slack
+
+
+_DRAW_PROBE = """
+import dataclasses, json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch import trace
+from repro_torch.core import engine as EN
+from repro_torch.launch import train_relief_har as TR
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+runs = {}
+for w in ("cpu", "cuda"):  # the same seed: the same windows and rng
+    run, ds = TR.build(backbone="b2", small=True, dropout=0.0, device=w)
+    runs[w] = EN.FedRun.create(run.task, run.proto, run.strategy, run.fleet,
+                               dataclasses.replace(run.fed, local_epochs=1))
+card = runs["cuda"]
+drawn = {w: r._round_batches(ds) for w, r in runs.items()}
+equal = all(torch.equal(drawn["cuda"][k].cpu(), drawn["cpu"][k])
+            for k in ("x", "y"))
+card.round(ds)  # warm: every kernel and shape
+torch.cuda.synchronize(dev)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    card.round(ds)
+    torch.cuda.synchronize(dev)
+prof.export_chrome_trace(sys.argv[1])  # a copy's bytes, by correlation id
+with open(sys.argv[1]) as f:
+    nbytes = {e["args"]["correlation"]: e["args"]["bytes"]
+              for e in json.load(f)["traceEvents"]
+              if e.get("cat") == "gpu_memcpy"}
+span = {r.name: r for r in trace.records()
+        if r.name in ("fed.draw", "fed.local_update")}
+print(json.dumps({
+    "equal": equal, "rows": int(drawn["cpu"]["y"].numel()),
+    "draw": [span["fed.draw"].start, span["fed.draw"].end,
+             span["fed.draw"].attrs],
+    "update_start": span["fed.local_update"].start,
+    "copies": [[e.name(), e.start_ns(), nbytes.get(e.correlation_id())]
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and "HtoD" in e.name()]}))
+"""
+
+
+def test_round_draws_its_batches_on_the_card(dev, tmp_path):
+    """A small B2 relief round on the card, profiled in a fresh process as
+    the benchmark traces: the draw gives the CPU draw's batches for the
+    same seed; in a round after the one that built the resident windows,
+    ``fed.draw`` builds nothing, its ``h2d_bytes`` is the int64 row
+    indices' bytes, and no host-to-device copy between the draw's start and
+    the local update's is larger than that array (the host gather copied
+    every batch)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = subprocess.run([sys.executable, "-c", _DRAW_PROBE,
+                          str(tmp_path / "trace.json")], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["equal"]
+    d0, _, attrs = got["draw"]
+    rows = got["rows"] * 8
+    assert attrs == {"built": 0, "h2d_bytes": rows}
+    copies = [c for c in got["copies"] if d0 <= c[1] <= got["update_start"]]
+    for name, start, size in copies:
+        print(f"[draw] {name}: {(start - d0) / 1e3:.1f} us after the draw's "
+              f"start, {size} bytes")
+    sizes = [c[2] for c in copies]
+    assert None not in sizes and sizes.count(rows) == 1, copies
+    assert max(sizes) == rows
