@@ -22,7 +22,12 @@ patches), and a codebook config (musicgen) raises, as the reference's
 engine cannot take its [P, n_codebooks] prompts. ``naive_serve`` is the
 baseline: sequential per-request decode with the
 request's single adapter. The engine's attention takes per-row positions,
-so it runs the plain chunked attention, as the reference's does.
+so it runs the plain chunked attention, as the reference's does. An MoE
+model's expert layers run as its config's ``moe_impl`` says, at admission
+and at decode alike: "dropless" (``models/moe.py``: the batch's
+assignments grouped by expert, none dropped) serves the model as
+published; "sparse", the training path, drops assignments past its
+capacity per (sequence, expert) and gives a decode row 2 slots per expert.
 """
 from __future__ import annotations
 

@@ -13,8 +13,23 @@ per (sequence, expert), and the experts' products run over [E, B*C, d].
 The combine gathers each token's ``top_k`` slots and sums them, with no
 atomics: with top_k = 2 each token gets two addends, and a + b is the same
 in either order, so the result is the reference's scatter-add onto zero.
-The expert products stay plain ``torch.bmm``: the reference computes them
-as einsums outside any Pallas kernel.
+Those expert products stay plain ``torch.bmm``: the reference computes
+them as einsums outside any Pallas kernel. That path ("sparse") is the one
+a train step takes, as the reference trains.
+
+``impl="dropless"`` is the inference path (Mixtral as published drops
+nothing): one stable sort of all B*S*k assignments of the batch by expert,
+across rows; each expert's rows are one contiguous segment, whose ends
+``searchsorted`` reads off the sorted ids on the device (CUDA's
+``bincount`` would read its maximum on the host); the SwiGLU products are
+one grouped product per matrix (``torch._grouped_mm``: on the card in bf16
+CUTLASS's grouped GEMM, one set-up kernel and one GEMM launch) over exactly
+the B*S*k rows, with no capacity, no drop and no padding row; the combine
+puts each row back in (token, k) order and sums the gated k rows, with no
+atomics. Its spans are ``moe.route``, ``moe.experts`` (attributes while
+recording: ``assignments`` = B*S*k, from the shapes, and ``load``, the [E]
+rows each expert got, a device tensor read only after the traced stretch)
+and ``moe.combine``.
 """
 from __future__ import annotations
 
@@ -23,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.kernels import runtime
 from repro_torch.models import layers as L
 
@@ -136,14 +152,46 @@ def _dense(p: dict, x: torch.Tensor, top_k: int, activation: str) -> tuple:
     return out.to(x.dtype), aux
 
 
+def _dropless(p: dict, x: torch.Tensor, top_k: int, activation: str
+              ) -> tuple:
+    """Every assignment of the batch through its expert, none dropped.
+    The load-balancing loss is a training term: this path returns 0.0."""
+    B, S, d = x.shape
+    E = p["wi"].shape[0]
+    A = B * S * top_k
+    with trace.span("moe.route"):
+        _, gates, ids = route(p, x, top_k)
+    with trace.span("moe.experts") as sp:
+        sorted_e, order = torch.sort(ids.reshape(A), stable=True)
+        ends = torch.searchsorted(
+            sorted_e, torch.arange(E, device=x.device, dtype=sorted_e.dtype),
+            right=True, out_int32=True)
+        xs = x.reshape(B * S, d).index_select(
+            0, torch.div(order, top_k, rounding_mode="floor"))
+        act = L._ACTIVATIONS[activation]
+        h = act(torch._grouped_mm(xs, p["wg"], offs=ends)) \
+            * torch._grouped_mm(xs, p["wi"], offs=ends)
+        ys = torch._grouped_mm(h, p["wo"], offs=ends)  # [A, d], by expert
+        if sp is not trace.OFF:
+            sp.attrs.update(assignments=A, load=torch.diff(
+                ends, prepend=ends.new_zeros(1)))
+    with trace.span("moe.combine"):
+        y = torch.empty_like(ys).index_copy_(0, order, ys)  # (token, k) order
+        out = (y.view(B, S, top_k, d) * gates[..., None].to(y.dtype)).sum(2)
+    return out.to(x.dtype), 0.0
+
+
 def moe_mlp(p: dict, x: torch.Tensor, *, top_k: int,
             capacity_factor: float = 1.25, activation: str = "silu",
             impl: str = "sparse") -> tuple:
     """x [B, S, d] -> (out [B, S, d], aux loss). ``impl`` "sparse": the
     per-sequence dispatch at capacity ``capacity(S, ...)``; "dense": every
-    expert on every token."""
+    expert on every token; "dropless": the batch's assignments grouped by
+    expert, none dropped (aux 0.0)."""
     if impl == "dense":
         return _dense(p, x, top_k, activation)
+    if impl == "dropless":
+        return _dropless(p, x, top_k, activation)
     if impl != "sparse":
         raise ValueError(f"unknown moe impl {impl!r}")
     cap = capacity(x.shape[1], top_k, p["wi"].shape[0], capacity_factor)

@@ -1271,6 +1271,77 @@ def test_moe_layer_on_card_matches_cpu(dev):
     assert abs(c[4] - d[4]) <= 1e-5
 
 
+def _dropless_inputs(B, S, dev, dtype, empty):
+    """An 8-expert layer (d 256, f 512) and x [B, S, 256]; with ``empty``
+    x's last feature is 5 and the router's weight of it for expert 7 is
+    -100, so no token picks expert 7 and its segment has no row."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(B * S)
+    p = moe.init_moe_mlp(g, 256, 512, 8, "cpu")
+    x = torch.randn((B, S, 256), generator=g)
+    if empty:
+        x[..., -1] = 5.0
+        p["router"][-1, 7] = -100.0
+    card = {k: v.to(dev) if k == "router" else v.to(dev, dtype)
+            for k, v in p.items()}
+    return p, x, card, x.to(dev, dtype)
+
+
+@pytest.mark.parametrize("B,S", [(64, 1), (1, 512)], ids=["decode",
+                                                          "prefill"])
+@pytest.mark.parametrize("empty", [False, True], ids=["all", "empty"])
+def test_dropless_moe_is_one_grouped_product_per_matrix(dev, B, S, empty):
+    """bf16 on the card: one ``moe.experts`` span, whose grouped products
+    are three CUTLASS grouped GEMMs, each with its one set-up kernel,
+    whatever the number of experts (an expert with no row included); its
+    ``assignments`` and ``load`` count every assignment; the output within
+    bf16's rounding of the CPU layer's in fp32 on the same bf16 values."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+    from repro_torch.models import moe
+
+    _, _, pc, xc = _dropless_inputs(B, S, dev, torch.bfloat16, empty)
+    # the same bf16 values in fp32 on the CPU: the same routes
+    want, _ = moe.moe_mlp({k: v.float().cpu() for k, v in pc.items()},
+                          xc.float().cpu(), top_k=2, impl="dropless")
+    moe.moe_mlp(pc, xc, top_k=2, impl="dropless")  # warm
+    torch.cuda.synchronize()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got, _ = moe.moe_mlp(pc, xc, top_k=2, impl="dropless")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    gemm = [n for n in names if "GroupProblemShape" in n]
+    setup = [n for n in names if "prepare_grouped_gemm" in n]
+    assert len(gemm) == 3 and len(setup) == 3, names
+    rec = [r for r in trace.records() if r.name == "moe.experts"]
+    trace.clear()
+    assert len(rec) == 1 and rec[0].attrs["assignments"] == 2 * B * S
+    load = rec[0].attrs["load"].cpu()
+    assert load.shape == (8,) and int(load.sum()) == 2 * B * S
+    assert (int(load[7]) == 0) == empty
+    torch.testing.assert_close(got.float().cpu(), want, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("empty", [False, True], ids=["all", "empty"])
+def test_dropless_moe_on_card_matches_cpu_at_fp32(dev, empty):
+    """fp32, TF32 off: the dropless layer on the card against the CPU's at
+    a prefill shape (4 rows of 128), the same expert ids, the output to
+    atol 1e-4."""
+    from repro_torch.models import moe
+
+    p, x, pc, xc = _dropless_inputs(4, 128, dev, torch.float32, empty)
+    want, _ = moe.moe_mlp(p, x, top_k=2, impl="dropless")
+    got, _ = moe.moe_mlp(pc, xc, top_k=2, impl="dropless")
+    assert torch.equal(moe.route(pc, xc, 2)[2].cpu(), moe.route(p, x, 2)[2])
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # the no-backward guard and the LM train step
 # ---------------------------------------------------------------------------
